@@ -1,0 +1,502 @@
+"""Smoke run of the skyplane_tpu_torch sender data path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the final ``ok`` line):
+
+1. Device, torch and CUDA versions, the card's name and power limit; build
+   the CUDA kernels from ``skyplane_tpu_torch/csrc`` (one nvcc per source,
+   all at once) and print the build seconds.
+2. Each kernel against its plain PyTorch version on the card, at the main
+   path's shapes (B = 8 rows of an 8 MiB bucket, cap 4096, 2050 slots) with
+   a zero row, a short row with its garbage end, sentinel-padded ends and an
+   overflowing cap of 16. Equality is exact (integer outputs). Each kernel
+   and plain version is timed with CUDA events and printed beside its bound.
+3. The main path: ``DataPathProcessor(codec_name="tpu", dedup=True)`` over a
+   ``DeviceBatchRunner(max_batch=8)`` with 16 sender threads, on the bench's
+   snapshot-chain corpus (4 snapshots x 6 chunks x 8 MiB, seed 0), with
+   fingerprints committed after each chunk. Launch counts are zeroed just
+   before and read just after. Then: sampled wire bytes equal the host
+   (numpy) path's, and every chunk restores byte-identical.
+4. One more pass of the main path under torch.profiler: the device's busy
+   share of the wall time and device time by kernel or copy. An error of
+   the data path fails this phase like any other.
+
+The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
+line describing every kernel, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import subprocess
+import sys
+import threading
+import time
+import uuid
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+CHUNK_MB = 8
+N_SNAPSHOTS = 4
+CHUNKS_PER_SNAPSHOT = 6
+ZERO_FRAC = 0.25
+BLOCK = 4096
+WRITE_SITE_FRAC = 0.004
+WRITE_RUN_BLOCKS = 8
+WORKERS = 16
+MAX_BATCH = 8
+SEED = 0
+
+# the card's peak rates (NVIDIA H100 SXM): HBM bytes/s from the data sheet,
+# and the 32-bit integer instruction rate. The data sheet gives 67e12 float32
+# FLOP/s: 128 FP32 lanes per SM, a multiply-add counted as two. A Hopper SM
+# has 64 INT32 lanes, so it issues 67e12 / 2 / 2 integer instructions/s. All
+# three kernels are integer work, so their operations are counted as 32-bit
+# integer instructions.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT_INSTR_PER_S = 67e12 / 4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---- corpus: a copy of bench.py's snapshot-chain generator ----
+
+
+def _clustered_mask(rng, n_blocks: int, site_frac: float, mean_run: int) -> np.ndarray:
+    mask = np.zeros(n_blocks, bool)
+    n_sites = max(1, int(n_blocks * site_frac))
+    starts = rng.integers(0, n_blocks, n_sites)
+    lengths = rng.geometric(1.0 / mean_run, n_sites)
+    for s, l in zip(starts, lengths):
+        mask[s : s + l] = True
+    return mask
+
+
+def _filesystem_content(rng, n_bytes: int) -> np.ndarray:
+    """~35% text-like runs, ~25% structured records, the rest incompressible
+    (the caller adds ~25% clustered zero extents)."""
+    out = rng.integers(0, 256, n_bytes, dtype=np.uint8)
+    n_blocks = n_bytes // BLOCK
+    text = _clustered_mask(rng, n_blocks, 0.35 / 24, 24)
+    tmask = np.repeat(text, BLOCK)
+    n_text = int(tmask.sum())
+    if n_text:
+        vocab = ((rng.integers(0, 256, (512, 8), dtype=np.uint8) & 0x3F) | 0x20).reshape(512, 8)
+        toks = rng.integers(0, 512, n_text // 8 + 1)
+        out[tmask] = vocab[toks].reshape(-1)[:n_text]
+    rec = _clustered_mask(rng, n_blocks, 0.25 / 24, 24) & ~text
+    run_id = np.cumsum(rec & ~np.concatenate([[False], rec[:-1]]))
+    out2d = out.reshape(n_blocks, BLOCK)
+    for rid in np.unique(run_id[rec]):
+        blocks = np.flatnonzero(rec & (run_id == rid))
+        record = rng.integers(0, 256, 64, dtype=np.uint8)
+        span = np.tile(record, (len(blocks) * BLOCK) // 64)
+        edits = rng.integers(0, len(span), max(1, len(span) // 32))
+        span[edits] = rng.integers(0, 256, len(edits), dtype=np.uint8)
+        out2d[blocks] = span.reshape(len(blocks), BLOCK)
+    return out
+
+
+def make_corpus(seed: int = SEED):
+    """Snapshot chain: each snapshot is the previous one with clustered writes."""
+    rng = np.random.default_rng(seed)
+    chunk_bytes = CHUNK_MB << 20
+    n_blocks = chunk_bytes // BLOCK
+    snap = []
+    for _ in range(CHUNKS_PER_SNAPSHOT):
+        blocks = _filesystem_content(rng, chunk_bytes).reshape(n_blocks, BLOCK)
+        blocks[_clustered_mask(rng, n_blocks, ZERO_FRAC / 16, 16)] = 0
+        snap.append(blocks)
+    chunks = [b.reshape(-1).tobytes() for b in snap]
+    for _ in range(N_SNAPSHOTS - 1):
+        nxt = []
+        for b in snap:
+            b2 = b.copy()
+            mut = _clustered_mask(rng, n_blocks, WRITE_SITE_FRAC, WRITE_RUN_BLOCKS)
+            b2[mut] = _filesystem_content(rng, int(mut.sum()) * BLOCK).reshape(-1, BLOCK)
+            nxt.append(b2)
+        chunks.extend(b.reshape(-1).tobytes() for b in nxt)
+        snap = nxt
+    return chunks
+
+
+# ---- phase helpers ----
+
+
+def card_line() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return r.stdout.strip().splitlines()[0]
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean ms per call over ``reps`` calls, CUDA events around the run."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, n_instr: float):
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_instr / PEAK_INT_INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    return int((got.long() - want.long()).abs().max().item())
+
+
+def ends_slots_for(packed: np.ndarray, lens, bucket: int, params, cap: int, n_slots: int) -> np.ndarray:
+    from skyplane_tpu_torch.ops.cdc import select_boundaries
+
+    ends = np.full((len(lens), n_slots), bucket, np.int32)
+    for i, n in enumerate(lens):
+        e = select_boundaries(packed[i, : packed[i, cap]].astype(np.int64), int(n), params)
+        ends[i, : len(e)] = e
+        if n < bucket:
+            ends[i, len(e)] = bucket
+    return ends
+
+
+def check_kernels(dev, chunks, params):
+    """Phase 2: every kernel == its plain version at the main path's shapes."""
+    from skyplane_tpu_torch.ops import kernels
+    from skyplane_tpu_torch.ops.fingerprint import N_LANES
+    from skyplane_tpu_torch.ops.fused_cdc import candidate_cap, slots_cap
+    from skyplane_tpu_torch.state import device_tables
+
+    tables = device_tables(dev)
+    bucket = CHUNK_MB << 20
+    cap, n_slots = candidate_cap(bucket, params), slots_cap(bucket, params)
+    rng = np.random.default_rng(1)
+    rows = np.stack([np.frombuffer(c, np.uint8) for c in chunks[:MAX_BATCH]])  # corpus rows
+    rows[5] = 0  # all-zero row (a batch pad row, n = 0)
+    short = bucket * 3 // 8 + 17
+    rows[6, short:] = 0  # short row: a garbage end covers its zero padding
+    rows[7] = rng.integers(0, 256, bucket, dtype=np.uint8)
+    lens = [bucket] * MAX_BATCH
+    lens[5], lens[6] = 0, short
+    batch = torch.from_numpy(rows).to(dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    errs = {}
+
+    mask, counts = kernels.gear_candidates(batch, lens_t, tables, params.mask_bits)
+    pmask, pcounts = kernels.gear_candidates_plain(batch, lens_t, tables, params.mask_bits)
+    errs["gear_candidates"] = max(max_abs_err(mask, pmask), max_abs_err(counts, pcounts))
+
+    packed = kernels.compact_candidates(mask, counts, bucket, cap)
+    errs["compact_candidates"] = max_abs_err(packed, kernels.compact_candidates_plain(pmask, pcounts, bucket, cap))
+    over = kernels.compact_candidates(mask, counts, bucket, 16)  # every full row overflows a cap of 16
+    errs["compact_candidates"] = max(errs["compact_candidates"], max_abs_err(over, kernels.compact_candidates_plain(pmask, pcounts, bucket, 16)))
+    packed_np = packed.cpu().numpy()
+    n_over = int((over.cpu().numpy()[:, 16] > 16).sum())
+    if n_over < 5:
+        raise AssertionError(f"a cap of 16 should overflow the full rows: {over.cpu().numpy()[:, 16].tolist()}")
+
+    ends = torch.from_numpy(ends_slots_for(packed_np, lens, bucket, params, cap, n_slots)).to(dev)
+    n_real = int((ends.cpu().numpy() < bucket).sum())
+    lanes = kernels.segment_fp(batch, ends, tables)
+    errs["segment_fp"] = max_abs_err(lanes, kernels.segment_fp_plain(batch, ends, tables))
+    sync(dev)
+    log(f"phase 2: B={MAX_BATCH} bucket={bucket} cap={cap} n_slots={n_slots}: "
+        f"candidates per row {packed_np[:, cap].tolist()}, rows over a cap of 16: {n_over}, real segment ends {n_real} of {MAX_BATCH * n_slots} slots, "
+        f"max |kernel - plain| {errs}")
+    if any(errs.values()):
+        raise AssertionError(f"kernel disagrees with its plain version: {errs}")
+
+    # timing at the same shapes; the plain versions are the same arithmetic, no yardstick of speed
+    t = {
+        "gear_candidates": (
+            time_ms(lambda: kernels.gear_candidates(batch, lens_t, tables, params.mask_bits), 50),
+            time_ms(lambda: kernels.gear_candidates_plain(batch, lens_t, tables, params.mask_bits), 3, 1),
+        ),
+        "compact_candidates": (
+            time_ms(lambda: kernels.compact_candidates(mask, counts, bucket, cap), 200),
+            time_ms(lambda: kernels.compact_candidates_plain(mask, counts, bucket, cap), 3, 1),
+        ),
+        "segment_fp": (
+            time_ms(lambda: kernels.segment_fp(batch, ends, tables), 50),
+            time_ms(lambda: kernels.segment_fp_plain(batch, ends, tables), 3, 1),
+        ),
+    }
+    # bounds from this run's inputs: each input read once, each output written once
+    n_in = MAX_BATCH * bucket
+    cand_per_row = counts.cpu().numpy()
+    tiles_needed = 0
+    for row in cand_per_row:  # K-B reads a tile's mask words only while its offset < cap
+        offsets = np.concatenate([[0], np.cumsum(row)[:-1]])
+        tiles_needed += int((offsets < cap).sum())
+    ends_np = ends.cpu().numpy()
+    seg_len = np.diff(np.concatenate([np.zeros((MAX_BATCH, 1), np.int64), np.minimum(ends_np, bucket)], 1), axis=1)
+    nonzero = int((batch != 0).sum().item())
+    bounds = {
+        # read bytes + lens + table; write mask bits + tile counts. Per byte:
+        # the hash step (one shift-add), the top-bits test, the length test
+        # and the bit set
+        "gear_candidates": bound_ms(n_in + 4 * MAX_BATCH + 1024 + n_in / 8 + 4 * counts.numel(), 4 * n_in),
+        # read the tile counts and the needed mask tiles (1 KiB each); write
+        # [B, cap+1] i32. Per mask word of a needed tile: a popcount and a scan add
+        "compact_candidates": bound_ms(4 * counts.numel() + 1024 * tiles_needed + 4 * packed.numel(), 2 * 256 * tiles_needed),
+        # read bytes, ends and the power-table entries the segments index; write the lanes.
+        # Per nonzero byte and lane: one 32 x 32 -> 64-bit multiply-add into
+        # the u64 sum, two 32-bit instructions (the low and the high half)
+        "segment_fp": bound_ms(
+            n_in + 4 * ends.numel() + 4 * N_LANES * int(min(seg_len.max(), kernels.MAX_SEGMENT_BYTES)) + 4 * lanes.numel(),
+            2 * N_LANES * nonzero,
+        ),
+    }
+    for name, (ms, plain_ms) in t.items():
+        b, by = bounds[name]
+        log(f"  {name}: {ms:.4f} ms/launch (plain {plain_ms:.3f} ms), bound {b:.4f} ms ({by}), {b / ms:.1%} of bound")
+    return errs, t, bounds
+
+
+def host_wire(chunk: bytes, index, codec, params):
+    """What ``DataPathProcessor.process`` sends, computed on the host path
+    (numpy CDC + fingerprints, no device)."""
+    from skyplane_tpu_torch.ops.cdc import cdc_and_fps_host
+    from skyplane_tpu_torch.ops.dedup import build_recipe
+
+    ends, fps = cdc_and_fps_host(np.frombuffer(chunk, np.uint8), params)
+    starts = np.concatenate([[0], ends[:-1]])
+    segments = [(fp, chunk[s:e]) for fp, s, e in zip(fps, starts.tolist(), ends.tolist())]
+    wire, n_ref, _, new_fps, _ = build_recipe(segments, index, codec.encode)
+    return wire, n_ref, new_fps
+
+
+def main_path(dev, chunks, params, card: str) -> dict:
+    """Phase 3: the sender path over the corpus, then its checks. Returns the
+    kernel launches of the timed run."""
+    from skyplane_tpu_torch.chunk import ChunkFlags, WireProtocolHeader
+    from skyplane_tpu_torch.ops import kernels
+    from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
+    from skyplane_tpu_torch.ops.codecs import get_codec
+    from skyplane_tpu_torch.ops.dedup import SegmentStore, SenderDedupIndex
+    from skyplane_tpu_torch.ops.pipeline import DataPathProcessor
+
+    raw_total = sum(len(c) for c in chunks)
+    runner = DeviceBatchRunner(cdc_params=params, max_batch=MAX_BATCH, device=dev)
+    warm = DataPathProcessor(codec_name="tpu", dedup=True, cdc_params=params, batch_runner=runner, device=dev)
+    warm_rng = np.random.default_rng(99)
+    warm_chunks = [warm_rng.integers(0, 256, CHUNK_MB << 20, dtype=np.uint8).tobytes() for _ in range(MAX_BATCH)]
+    with ThreadPoolExecutor(max_workers=WORKERS) as pool:
+        list(pool.map(lambda c: warm.process(c, SenderDedupIndex()), warm_chunks))
+
+    proc = DataPathProcessor(codec_name="tpu", dedup=True, cdc_params=params, batch_runner=runner, device=dev)
+    index = SenderDedupIndex()
+    done_order, payloads = [], {}
+    order_lock = threading.Lock()
+
+    def one(i: int) -> None:
+        p = proc.process(chunks[i], index)
+        with order_lock:  # delivered -> commit (sender contract), in delivery order
+            for fp, size in p.new_fingerprints:
+                index.add(fp, size)
+            payloads[i] = p
+            done_order.append(i)
+
+    overflow0 = runner.fused.overflow_rows
+    pre = runner.counters()
+    sync(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=WORKERS) as pool:
+        list(pool.map(one, range(len(chunks))))
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    post = runner.counters()
+    wire_total = sum(len(p.wire_bytes) for p in payloads.values())
+    n_seg = sum(p.n_segments for p in payloads.values())
+    n_ref = sum(p.n_ref_segments for p in payloads.values())
+    overflow = runner.fused.overflow_rows - overflow0
+    windows = post["batch_windows"] - pre["batch_windows"]
+    log(f"phase 3 on {card}: {len(chunks)} chunks / {raw_total} bytes in {dt:.3f} s = "
+        f"{raw_total * 8 / dt / 1e9:.3f} Gbps effective; wire reduction {raw_total / wire_total:.3f}x "
+        f"({wire_total} wire bytes); REF segments {n_ref} of {n_seg}; overflow rows {overflow}; "
+        f"batch windows {windows}, padded rows {post['batch_padded_rows'] - pre['batch_padded_rows']}; "
+        f"kernel launches {launches}")
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if n_ref == 0:
+        raise AssertionError("no REF segments on a snapshot chain")
+
+    # sampled wire bytes == the host path's (fresh indexes, one chunk at a time)
+    codec = get_codec("tpu")
+    sample = [0, 1, 2, 3, 4, 5, 6, 12]  # 6 and 12 are later snapshots of chunk 0
+    seq = DataPathProcessor(codec_name="tpu", dedup=True, cdc_params=params, batch_runner=runner, device=dev)
+    gi, hi = SenderDedupIndex(), SenderDedupIndex()
+    sample_refs = 0
+    for i in sample:
+        p = seq.process(chunks[i], gi)
+        wire, n_ref_h, new_h = host_wire(chunks[i], hi, codec, params)
+        if p.wire_bytes != wire or p.n_ref_segments != n_ref_h:
+            raise AssertionError(f"chunk {i}: wire bytes differ from the host path")
+        sample_refs += n_ref_h
+        for fp, size in p.new_fingerprints:
+            gi.add(fp, size)
+        for fp, size in new_h:
+            hi.add(fp, size)
+    if sample_refs == 0:
+        raise AssertionError("the sampled near-duplicates carried no REF segment")
+    log(f"phase 3: wire bytes of chunks {sample} equal the host path's ({sample_refs} REF segments)")
+
+    # every chunk of the main run restores byte-identical, in delivery order
+    receiver = DataPathProcessor(codec_name="tpu", dedup=True, cdc_params=params, paranoid_verify=True, device=dev)
+    store = SegmentStore()
+    for i in done_order:
+        p = payloads[i]
+        header = WireProtocolHeader(
+            chunk_id=uuid.uuid4().hex, data_len=len(p.wire_bytes), raw_data_len=p.raw_len, codec=int(p.codec),
+            flags=int(ChunkFlags.RECIPE) if p.is_recipe else 0, fingerprint=p.fingerprint,
+        )
+        got = receiver.restore(p.wire_bytes, header, store, ref_wait_timeout=5.0)
+        if hashlib.blake2b(got, digest_size=16).digest() != hashlib.blake2b(chunks[i], digest_size=16).digest():
+            raise AssertionError(f"chunk {i} did not restore byte-identical")
+    log(f"phase 3: all {len(done_order)} chunks restored byte-identical (paranoid re-fingerprint on the card)")
+
+    return launches
+
+
+def profile_main_path(dev, chunks, params, card: str) -> None:
+    """Phase 4: one more pass of the main path (fresh runner and index) under
+    torch.profiler: the device's busy share of the wall time (the union of
+    its kernel and copy intervals) and device time by kernel or copy name.
+    Only the profiler's own failures (it cannot start, or records no device
+    activity) are reported as not measured; an error of the data path ends
+    the run."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
+    from skyplane_tpu_torch.ops.dedup import SenderDedupIndex
+    from skyplane_tpu_torch.ops.pipeline import DataPathProcessor
+
+    runner = DeviceBatchRunner(cdc_params=params, max_batch=MAX_BATCH, device=dev)
+    proc = DataPathProcessor(codec_name="tpu", dedup=True, cdc_params=params, batch_runner=runner, device=dev)
+    index = SenderDedupIndex()
+    lock = threading.Lock()
+
+    def one(c: bytes) -> None:
+        p = proc.process(c, index)
+        with lock:
+            for fp, size in p.new_fingerprints:
+                index.add(fp, size)
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except Exception as err:  # noqa: BLE001 — the profiler, not the port
+        log(f"phase 4: device busy share not measured (profiler did not start: {err!r})")
+        prof = None
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=WORKERS) as pool:
+            list(pool.map(one, chunks))
+        sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        if prof is not None:
+            prof.stop()
+    if prof is None:
+        return
+    try:
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as err:  # noqa: BLE001 — the profiler, not the port
+        events, why = [], f"profiler events unreadable: {err!r}"
+    else:
+        why = "no device events traced"
+    if not events:
+        log(f"phase 4 on {card}: profiled wall {wall:.3f} s; device busy share not measured ({why})")
+        return
+    busy_us, end_us = 0.0, None
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if end_us is None or start > end_us:
+            busy_us += stop - start
+            end_us = stop
+        elif stop > end_us:
+            busy_us += stop - end_us
+            end_us = stop
+    by_name = defaultdict(float)
+    for e in events:
+        by_name[e.name] += e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"phase 4 on {card}: profiled wall {wall:.3f} s, device busy {busy_us / 1e3:.3f} ms = "
+        f"{busy_us / 1e6 / wall:.2%} of wall (idle {1 - busy_us / 1e6 / wall:.2%}); device time by name (ms): "
+        + "; ".join(f"{name[:60]} {us / 1e3:.3f}" for name, us in top))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from skyplane_tpu_torch.ops import kernels
+    from skyplane_tpu_torch.ops.cdc import CDCParams
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    log(f"phase 1: device {kind} (count {torch.cuda.device_count()}), torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"phase 1: nvidia-smi: {card}")
+    t0 = time.perf_counter()
+    build_s = kernels.build()
+    log(f"phase 1: built {sorted(build_s)} in {time.perf_counter() - t0:.2f} s (per kernel: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(build_s.items())) + ")")
+
+    t0 = time.perf_counter()
+    chunks = make_corpus(SEED)
+    raw_total = sum(len(c) for c in chunks)
+    log(f"corpus: {len(chunks)} chunks, {raw_total} bytes, made in {time.perf_counter() - t0:.1f} s")
+    params = CDCParams()
+    errs, timings, bounds = check_kernels(dev, chunks, params)
+
+    launches = main_path(dev, chunks, params, card)
+    profile_main_path(dev, chunks, params, card)
+
+    replaces = {
+        "gear_candidates": ("skyplane_tpu_torch/csrc/gear_candidates.cu", "skyplane_tpu/ops/pallas_kernels.py:48"),
+        "compact_candidates": ("skyplane_tpu_torch/csrc/compact_candidates.cu", "skyplane_tpu/ops/fused_cdc.py:90"),
+        "segment_fp": ("skyplane_tpu_torch/csrc/segment_fp.cu", "skyplane_tpu/ops/fused_cdc.py:108"),
+    }
+    rows = []
+    for name, (source, rep) in replaces.items():
+        ms, plain_ms = timings[name]
+        b, by = bounds[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": rep, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": None,
+        })
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(card, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

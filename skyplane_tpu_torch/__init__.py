@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of the skyplane_tpu gateway data path.
+
+The sender path (gear CDC -> candidate compaction -> segment fingerprints ->
+dedup recipe -> codec) runs on an NVIDIA GPU through hand-written CUDA
+kernels (``ops/kernels.py``, sources in ``csrc/``); the receiver inverse
+(``restore``) runs on the host. Wire bytes are byte-identical to the JAX
+package's. Entry points take ``device=`` and default to ``"cuda"``; pass
+``device="cpu"`` to run the kernels' plain PyTorch versions instead.
+"""

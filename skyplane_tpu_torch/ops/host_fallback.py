@@ -1,0 +1,81 @@
+"""Numpy host kernels: the gear hash and the blockpack container codec.
+
+The port uses them where the reference does on an accelerator: exact host
+recompute of candidate-overflow rows, and the blockpack encode/decode of the
+``tpu`` codecs (the reference's native library is not ported; its numpy path
+is bit-identical to its native and device paths).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from skyplane_tpu_torch.ops.gear import GEAR_TABLE, GEAR_WINDOW
+
+
+def gear_hash_host(data: np.ndarray) -> np.ndarray:
+    """[N] uint8 -> [N] uint32, the log-doubling windowed sum."""
+    h = GEAR_TABLE[data]
+    off = 1
+    while off < GEAR_WINDOW:
+        shifted = np.zeros_like(h)
+        shifted[off:] = h[:-off]
+        h = (h + (shifted << np.uint32(off))).astype(np.uint32)
+        off <<= 1
+    return h
+
+
+def boundary_candidates_host(h: np.ndarray, mask_bits: int) -> np.ndarray:
+    return (h >> np.uint32(32 - mask_bits)) == 0
+
+
+def blockpack_encode_host(data: np.ndarray, block_bytes: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """[N] uint8 (N % block_bytes == 0) -> (tags [NB] uint8, literals [n_lit] uint8, n_lit)."""
+    from skyplane_tpu_torch.ops.blockpack import TAG_CONST, TAG_LITERAL, TAG_ZERO
+
+    nb = len(data) // block_bytes
+    blocks = data.reshape(nb, block_bytes)
+    first = blocks[:, :1]
+    is_const = (blocks == first).all(axis=1)
+    is_zero = is_const & (first[:, 0] == 0)
+    tags = np.where(is_zero, TAG_ZERO, np.where(is_const, TAG_CONST, TAG_LITERAL)).astype(np.uint8)
+    lit_mask = tags == TAG_LITERAL
+    const_mask = tags == TAG_CONST
+    if not (lit_mask.any() or const_mask.any()):
+        return tags, np.empty(0, np.uint8), 0
+    # stream order is kept: per-block literal lengths -> offsets -> scatter
+    lens = np.where(lit_mask, block_bytes, np.where(const_mask, 1, 0))
+    total = int(lens.sum())
+    out = np.empty(total, np.uint8)
+    offsets = np.cumsum(lens) - lens
+    lit_idx = np.flatnonzero(lit_mask)
+    if len(lit_idx):
+        dst = (offsets[lit_idx][:, None] + np.arange(block_bytes)[None, :]).reshape(-1)
+        out[dst] = blocks[lit_idx].reshape(-1)
+    const_idx = np.flatnonzero(const_mask)
+    if len(const_idx):
+        out[offsets[const_idx]] = blocks[const_idx, 0]
+    return tags, out, total
+
+
+def blockpack_decode_host(tags: np.ndarray, literals: np.ndarray, block_bytes: int) -> np.ndarray:
+    from skyplane_tpu_torch.exceptions import CodecException
+    from skyplane_tpu_torch.ops.blockpack import TAG_CONST, TAG_LITERAL
+
+    nb = len(tags)
+    lens = np.where(tags == TAG_LITERAL, block_bytes, np.where(tags == TAG_CONST, 1, 0))
+    if int(lens.sum()) > len(literals):
+        raise CodecException("blockpack container corrupt: tag/literal length mismatch")
+    offsets = np.cumsum(lens) - lens
+    out = np.zeros(nb * block_bytes, np.uint8)
+    blocks = out.reshape(nb, block_bytes)
+    lit_idx = np.flatnonzero(tags == TAG_LITERAL)
+    if len(lit_idx):
+        src = (offsets[lit_idx][:, None] + np.arange(block_bytes)[None, :]).reshape(-1)
+        blocks[lit_idx] = literals[src].reshape(len(lit_idx), block_bytes)
+    const_idx = np.flatnonzero(tags == TAG_CONST)
+    if len(const_idx):
+        blocks[const_idx] = literals[offsets[const_idx]][:, None]
+    return out

@@ -1,0 +1,300 @@
+"""The hand-written CUDA kernels of the sender data path, their plain
+PyTorch versions, their launch counts, and the build and loader.
+
+Counterpart of ``skyplane_tpu/ops/pallas_kernels.py``. Three kernels carry
+the per-chunk sender path (sources in ``skyplane_tpu_torch/csrc/``):
+
+- ``gear_candidates`` (K-A, ``csrc/gear_candidates.cu``) replaces the Pallas
+  gear windowed sum (``pallas_kernels.py`` ``gear_windowed_sum_pallas``) with
+  the table gather and the candidate mask of call A. Bound by bytes.
+- ``compact_candidates`` (K-B, ``csrc/compact_candidates.cu``) replaces the
+  XLA compaction half of call A (``fused_cdc.py`` ``_candidates_impl``).
+  Bound by bytes.
+- ``segment_fp`` (K-C, ``csrc/segment_fp.cu``) replaces call B (``fused_cdc.py``
+  ``_fp_body`` + ``fingerprint.py`` ``segment_fingerprint_cumsum``). Bound by
+  integer work and power-table reads.
+
+Each source file says how its design answers its bound. Each wrapper checks
+its operands, then runs the plain version when the batch lies on the CPU and
+launches the kernel when it lies on a CUDA device; a failed launch raises,
+there is no fallback. ``launch_counts()`` counts kernel launches only.
+
+Build: each source is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface under ``build/skyplane_tpu_torch/`` (named by
+a hash of its sources and flags), at first use or by :func:`build`, which
+starts one ``nvcc`` per source at once. The libraries are loaded with
+``ctypes``; every pointer and the stream pass as ``c_void_p``, and each C
+function returns ``cudaGetLastError()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
+
+import torch
+
+from skyplane_tpu_torch.ops.fingerprint import MAX_SEGMENT_BYTES, N_LANES, segment_fingerprint_cumsum
+from skyplane_tpu_torch.ops.gear import boundary_candidate_mask, gear_hash
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "skyplane_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+GEAR_TILE = 8192  # bytes per K-A block: one candidate count per tile (K-B's scan unit)
+FP_TILE = 4096  # bytes per K-C block
+MAX_ROWS = 65535  # grid y limit
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+# name -> (source, C argument types after the name's pointers)
+_KERNELS = {
+    "gear_candidates": ("gear_candidates.cu", [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]),
+    "compact_candidates": ("compact_candidates.cu", [_P, _P, _P, _LL, _I, _I, _I, _P]),
+    "segment_fp": ("segment_fp.cu", [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]),
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+_launches = {name: 0 for name in _KERNELS}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per kernel since the last reset (plain runs never count)."""
+    with _lock:
+        return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    with _lock:
+        for name in _launches:
+            _launches[name] = 0
+
+
+# ---- build and load ----
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit (PATH, CUDA_HOME or /usr/local/cuda)")
+
+
+def library_path(name: str) -> Path:
+    """Where kernel ``name`` is built: keyed by its source, the headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [CSRC / _KERNELS[name][0]] + sorted(CSRC.glob("*.cuh")):
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile the kernels not yet built, one ``nvcc`` per source, all started
+    together. Returns seconds per kernel (0.0 when already built); raises
+    ``RuntimeError`` with the compiler's output when one fails. ``-Xptxas -v``
+    output (registers, shared memory, spills) is kept beside each library as
+    ``<library>.log``."""
+    names = list(_KERNELS if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.tmp{os.getpid()}.{threading.get_ident()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", f"-I{CSRC}", "-o", str(tmp), str(CSRC / _KERNELS[name][0])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+    seconds = {name: 0.0 for name in names}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        out.with_name(out.name + ".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            fn = getattr(lib, f"skyt_{name}")
+            fn.argtypes = _KERNELS[name][1]
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s C entry on the current stream of ``device``;
+    raise on a CUDA error, count the launch on success."""
+    fn = getattr(_lib(name), f"skyt_{name}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(*args, device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    with _lock:
+        _launches[name] += 1
+
+
+# ---- operand checks ----
+
+
+def _check_batch(batch: torch.Tensor) -> Tuple[int, int]:
+    if batch.dtype != torch.uint8 or batch.dim() != 2 or not batch.is_contiguous():
+        raise ValueError(f"batch must be a contiguous [B, bucket] uint8 tensor, got {batch.dtype} {tuple(batch.shape)}")
+    b, bucket = batch.shape
+    if not 1 <= b <= MAX_ROWS:
+        raise ValueError(f"batch rows {b} outside [1, {MAX_ROWS}]")
+    if bucket % GEAR_TILE or not 0 < bucket < (1 << 31):
+        raise ValueError(f"bucket {bucket} must be a positive multiple of {GEAR_TILE} below 2^31")
+    if batch.device.type == "cuda" and batch.data_ptr() % 16:
+        raise ValueError("batch must be 16-byte aligned")
+    return b, bucket
+
+
+def _check_operand(t: torch.Tensor, shape, dtype, device, what: str) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous() or t.device != device:
+        raise ValueError(
+            f"{what} must be a contiguous {dtype} tensor of shape {tuple(shape)} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+# ---- K-A: gear hash + candidate mask + per-tile counts ----
+
+
+def gear_candidates_plain(batch: torch.Tensor, lens: torch.Tensor, tables, mask_bits: int):
+    """Plain version of K-A: the same function in PyTorch (int64 carriers)."""
+    b, bucket = batch.shape
+    h = gear_hash(batch, tables.gear)
+    iota = torch.arange(bucket, device=batch.device)
+    valid = boundary_candidate_mask(h, mask_bits) & (iota[None, :] < lens.long()[:, None])
+    shifts = torch.arange(32, device=batch.device)
+    words = (valid.view(b, bucket // 32, 32).long() << shifts).sum(-1)  # distinct bits: sum == or
+    counts = valid.view(b, bucket // GEAR_TILE, GEAR_TILE).sum(-1, dtype=torch.int32)
+    return words.to(torch.int32), counts
+
+
+def gear_candidates(batch: torch.Tensor, lens: torch.Tensor, tables, mask_bits: int):
+    """[B, bucket] uint8 + lens [B] int32 -> (mask [B, bucket/32] int32, counts [B, bucket/GEAR_TILE] int32).
+
+    Bit k of mask word w is set where position p = 32w + k is a boundary
+    candidate (top ``mask_bits`` of the gear hash zero) and p < lens[row];
+    counts[row, t] is the number of candidates in tile t (GEAR_TILE bytes).
+    """
+    b, bucket = _check_batch(batch)
+    if not 1 <= mask_bits <= 31:
+        raise ValueError(f"mask_bits {mask_bits} outside [1, 31]")
+    _check_operand(lens, (b,), torch.int32, batch.device, "lens")
+    if batch.device.type == "cpu":
+        return gear_candidates_plain(batch, lens, tables, mask_bits)
+    mask = torch.empty((b, bucket // 32), dtype=torch.int32, device=batch.device)
+    counts = torch.empty((b, bucket // GEAR_TILE), dtype=torch.int32, device=batch.device)
+    _launch(
+        "gear_candidates", batch.device, batch.data_ptr(), lens.data_ptr(), tables.gear_bits.data_ptr(),
+        mask.data_ptr(), counts.data_ptr(), bucket, b, mask_bits,
+    )
+    return mask, counts
+
+
+# ---- K-B: ordered compaction ----
+
+
+def compact_candidates_plain(mask: torch.Tensor, counts: torch.Tensor, bucket: int, cap: int) -> torch.Tensor:
+    """Plain version of K-B (the scatter form of ``_candidates_impl``)."""
+    b, w = mask.shape
+    shifts = torch.arange(32, device=mask.device)
+    valid = (((mask.long() & 0xFFFFFFFF)[:, :, None] >> shifts) & 1).bool().view(b, w * 32)
+    n_cand = valid.sum(-1)
+    pos = torch.cumsum(valid, -1) - 1
+    scatter_to = torch.where(valid & (pos < cap), pos, torch.full_like(pos, cap))  # cap -> overwritten below
+    out = torch.full((b, cap + 1), bucket, dtype=torch.int64, device=mask.device)
+    out.scatter_(1, scatter_to, torch.arange(w * 32, device=mask.device).expand(b, -1).contiguous())
+    out[:, cap] = n_cand
+    return out.to(torch.int32)
+
+
+def compact_candidates(mask: torch.Tensor, counts: torch.Tensor, bucket: int, cap: int) -> torch.Tensor:
+    """K-A's mask and counts -> packed [B, cap+1] int32: the first ``cap``
+    candidate positions ascending, padded with ``bucket``, and the true
+    candidate count (even past ``cap``) in column ``cap``."""
+    b = mask.shape[0]
+    if not 1 <= b <= MAX_ROWS or bucket % GEAR_TILE or not 0 < bucket < (1 << 31) or cap < 1:
+        raise ValueError(f"bad compaction shape: rows {b}, bucket {bucket}, cap {cap}")
+    _check_operand(mask, (b, bucket // 32), torch.int32, mask.device, "mask")
+    _check_operand(counts, (b, bucket // GEAR_TILE), torch.int32, mask.device, "counts")
+    if mask.device.type == "cpu":
+        return compact_candidates_plain(mask, counts, bucket, cap)
+    out = torch.empty((b, cap + 1), dtype=torch.int32, device=mask.device)
+    _launch("compact_candidates", mask.device, mask.data_ptr(), counts.data_ptr(), out.data_ptr(), bucket, b, cap)
+    return out
+
+
+# ---- K-C: variable-segment fingerprints ----
+
+
+def segment_fp_plain(batch: torch.Tensor, ends_slots: torch.Tensor, tables) -> torch.Tensor:
+    """Plain version of K-C: ``_fp_body`` + ``segment_fingerprint_cumsum``."""
+    b, bucket = batch.shape
+    n_slots = ends_slots.shape[1]
+    ends = ends_slots.long()
+    dev = batch.device
+    # a byte at an end offset belongs to the NEXT segment; ends == bucket drop out
+    marks = torch.zeros((b, bucket + 1), dtype=torch.int64, device=dev)
+    marks.scatter_add_(1, ends.clamp(0, bucket), torch.ones_like(ends))
+    seg_ids = torch.cumsum(marks[:, :bucket], -1)
+    seg_end = ends.gather(1, seg_ids.clamp(max=n_slots - 1))
+    rev_pos = (seg_end - 1 - torch.arange(bucket, device=dev)).clamp(0, MAX_SEGMENT_BYTES - 1)
+    starts = torch.cat([torch.zeros((b, 1), dtype=torch.int64, device=dev), ends[:, :-1]], dim=1)
+    c = ends.clamp(0, bucket)
+    s = starts.clamp(0, bucket)
+    lanes = segment_fingerprint_cumsum(batch, rev_pos, torch.minimum(s, c), c, tables.powers)
+    return lanes.to(torch.int32)
+
+
+def segment_fp(batch: torch.Tensor, ends_slots: torch.Tensor, tables) -> torch.Tensor:
+    """[B, bucket] uint8 + [B, n_slots] int32 segment ends -> [B, n_slots, 8]
+    int32 lanes in [0, M31) (uint32 values).
+
+    ``ends_slots`` rows: ascending real ends (the last is the chunk length),
+    then one ``bucket`` end when the chunk is shorter than the bucket, then
+    ``bucket`` sentinels, whose slots come out 0.
+    """
+    b, bucket = _check_batch(batch)
+    if bucket % FP_TILE:
+        raise ValueError(f"bucket {bucket} must be a multiple of {FP_TILE}")
+    if ends_slots.dim() != 2 or ends_slots.shape[0] != b or ends_slots.shape[1] < 1:
+        raise ValueError(f"ends_slots must be [B={b}, n_slots], got {tuple(ends_slots.shape)}")
+    n_slots = ends_slots.shape[1]
+    _check_operand(ends_slots, (b, n_slots), torch.int32, batch.device, "ends_slots")
+    if batch.device.type == "cpu":
+        return segment_fp_plain(batch, ends_slots, tables)
+    acc = torch.empty((b, n_slots, N_LANES), dtype=torch.int64, device=batch.device)  # u64 scratch
+    out = torch.empty((b, n_slots, N_LANES), dtype=torch.int32, device=batch.device)
+    _launch(
+        "segment_fp", batch.device, batch.data_ptr(), ends_slots.data_ptr(), tables.powers_bits.data_ptr(),
+        acc.data_ptr(), out.data_ptr(), bucket, b, n_slots, MAX_SEGMENT_BYTES,
+    )
+    return out

@@ -1,0 +1,127 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: every test needs an NVIDIA GPU and nvcc and skips elsewhere
+(the decision is made in a fixture, never at import). Run on a machine with
+a card, without the repo's conftest (which imports jax):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Equality is exact: every output is an integer.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from skyplane_tpu_torch.ops import kernels
+from skyplane_tpu_torch.ops.cdc import CDCParams, cdc_and_fps_host, select_boundaries
+from skyplane_tpu_torch.ops.fused_cdc import FusedCDCFP, candidate_cap, slots_cap
+from skyplane_tpu_torch.state import device_tables
+
+pytestmark = pytest.mark.cuda
+
+PARAMS = CDCParams(min_bytes=1024, avg_bytes=4096, max_bytes=16384)
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    try:
+        kernels._nvcc()
+    except RuntimeError as e:  # no toolkit: the kernels cannot exist here
+        pytest.skip(str(e))
+    kernels.build()  # a source that does not compile fails every test here
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _batch(rng, b, bucket, lens):
+    data = rng.integers(0, 256, (b, bucket), dtype=np.uint8)
+    for i, n in enumerate(lens):
+        data[i, n:] = 0
+    data[0, 1000:9000] = 0  # a zero extent inside a full row
+    return data
+
+
+def _ends_slots(packed, lens, bucket, params, cap):
+    n_slots = slots_cap(bucket, params)
+    ends = np.full((len(lens), n_slots), bucket, np.int32)
+    for i, n in enumerate(lens):
+        e = select_boundaries(packed[i, : packed[i, cap]].astype(np.int64), int(n), params)
+        ends[i, : len(e)] = e
+        if n < bucket:
+            ends[i, len(e)] = bucket
+    return ends
+
+
+@pytest.mark.parametrize("bucket", [1 << 16, 1 << 18])
+def test_kernels_match_plain(dev, bucket):
+    rng = np.random.default_rng(bucket)
+    lens = [bucket, bucket // 3, 0, 17]
+    data = _batch(rng, 4, bucket, lens)
+    cpu_t, gpu_t = device_tables("cpu"), device_tables(dev)
+    batch = torch.from_numpy(data)
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    mask, counts = kernels.gear_candidates(batch.to(dev), lens_t.to(dev), gpu_t, PARAMS.mask_bits)
+    pmask, pcounts = kernels.gear_candidates(batch, lens_t, cpu_t, PARAMS.mask_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(mask.cpu(), pmask) and torch.equal(counts.cpu(), pcounts)
+    for cap in (16, candidate_cap(bucket, PARAMS)):  # 16: overflow rows keep the true count
+        packed = kernels.compact_candidates(mask, counts, bucket, cap)
+        assert torch.equal(packed.cpu(), kernels.compact_candidates(pmask, pcounts, bucket, cap))
+    cap = candidate_cap(bucket, PARAMS)
+    packed = kernels.compact_candidates(pmask, pcounts, bucket, cap).numpy()
+    ends = torch.from_numpy(_ends_slots(packed, lens, bucket, PARAMS, cap))
+    lanes = kernels.segment_fp(batch.to(dev), ends.to(dev), gpu_t)
+    assert torch.equal(lanes.cpu(), kernels.segment_fp(batch, ends, cpu_t))
+
+
+def test_segment_fp_garbage_and_clipped_positions(dev):
+    """Nonzero bytes past n (the garbage slot) and a garbage segment longer
+    than MAX_SEGMENT_BYTES, where the power index is clipped."""
+    rng = np.random.default_rng(7)
+    bucket = 1 << 19
+    data = rng.integers(0, 256, (2, bucket), dtype=np.uint8)
+    n_slots = 8
+    ends = np.full((2, n_slots), bucket, np.int32)
+    ends[0, :3] = [5000, 9000, 10000]  # then the garbage end `bucket`
+    ends[1, :1] = [0]
+    cpu_t, gpu_t = device_tables("cpu"), device_tables(dev)
+    batch, e = torch.from_numpy(data), torch.from_numpy(ends)
+    got = kernels.segment_fp(batch.to(dev), e.to(dev), gpu_t).cpu()
+    assert torch.equal(got, kernels.segment_fp(batch, e, cpu_t))
+
+
+def test_kernel_launches_counted(dev):
+    kernels.reset_launch_counts()
+    fused = FusedCDCFP(PARAMS, device=dev)
+    rng = np.random.default_rng(3)
+    chunk = rng.integers(0, 256, 1 << 16, dtype=np.uint8)
+    (ends, fps), = fused(chunk[None, :], [len(chunk)])
+    assert kernels.launch_counts() == {"gear_candidates": 1, "compact_candidates": 1, "segment_fp": 1}
+    want_ends, want_fps = cdc_and_fps_host(chunk, PARAMS)
+    np.testing.assert_array_equal(ends, want_ends)
+    assert fps == want_fps
+
+
+def test_processor_on_card_matches_cpu(dev):
+    from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
+    from skyplane_tpu_torch.ops.dedup import SenderDedupIndex
+    from skyplane_tpu_torch.ops.pipeline import DataPathProcessor
+
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, 256, 300_000, dtype=np.uint8)
+    near = base.copy()
+    near[100_000:100_500] = 7
+    chunks = [base.tobytes(), near.tobytes(), rng.integers(0, 256, 90_000, dtype=np.uint8).tobytes()]
+    runner = DeviceBatchRunner(cdc_params=PARAMS, max_batch=4, device=dev)
+    gpu = DataPathProcessor(codec_name="tpu", cdc_params=PARAMS, batch_runner=runner, device=dev)
+    cpu = DataPathProcessor(codec_name="tpu", cdc_params=PARAMS, device="cpu")
+    gi, ci = SenderDedupIndex(), SenderDedupIndex()
+    for c in chunks:
+        a, b = gpu.process(c, gi), cpu.process(c, ci)
+        assert a.wire_bytes == b.wire_bytes
+        for fp, size in a.new_fingerprints:
+            gi.add(fp, size)
+        for fp, size in b.new_fingerprints:
+            ci.add(fp, size)
