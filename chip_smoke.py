@@ -21,6 +21,18 @@ Phases (any failure exits non-zero before the final ``ok`` line):
 4. One more pass of the main path under torch.profiler: the device's busy
    share of the wall time and device time by kernel or copy. An error of
    the data path fails this phase like any other.
+5. The fused batch step ``datapath_step`` (slice 2) at B = 8 x 8 MiB on the
+   corpus's first 8 chunks, block 512, fingerprint stride 64 KiB, mask bits
+   16, with launch counts zeroed just before and read just after. Its
+   outputs are checked (shapes, ranges, every row's literals decode
+   byte-identical through the host decoder, the ``entry()`` twin on the card
+   equals its CPU run), and each of its kernels (``gear_mask``,
+   ``segment_fp_fixed``, ``blockpack_encode``) equals its plain version
+   exactly on those rows and on adversarial ones (all-zero, constant, a
+   repeated 1 KiB pattern, random), ``segment_fp_fixed`` also at strides
+   4096, 2^17 and 2^19 (past the power table: clamped). Kernel, plain and
+   whole-step times with CUDA events, beside each kernel's bound; then 20
+   steps under torch.profiler: the device's busy share of their wall time.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 line describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -50,6 +62,13 @@ WRITE_RUN_BLOCKS = 8
 WORKERS = 16
 MAX_BATCH = 8
 SEED = 0
+# datapath_step's defaults (phase 5)
+STEP_BLOCK = 512
+STEP_FP_SEG = 1 << 16
+STEP_MASK_BITS = 16
+STEP_EXTRA_STRIDES = (4096, 1 << 17, 1 << 19)
+SLICE1 = ("gear_candidates", "compact_candidates", "segment_fp")
+SLICE2 = ("gear_mask", "segment_fp_fixed", "blockpack_encode")
 
 # the card's peak rates (NVIDIA H100 SXM): HBM bytes/s from the data sheet,
 # and the 32-bit integer instruction rate. The data sheet gives 67e12 float32
@@ -338,7 +357,7 @@ def main_path(dev, chunks, params, card: str) -> dict:
         f"({wire_total} wire bytes); REF segments {n_ref} of {n_seg}; overflow rows {overflow}; "
         f"batch windows {windows}, padded rows {post['batch_padded_rows'] - pre['batch_padded_rows']}; "
         f"kernel launches {launches}")
-    if any(v == 0 for v in launches.values()):
+    if any(launches[k] == 0 for k in SLICE1):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if n_ref == 0:
         raise AssertionError("no REF segments on a snapshot chain")
@@ -380,6 +399,25 @@ def main_path(dev, chunks, params, card: str) -> dict:
     return launches
 
 
+def device_busy(events):
+    """Device events of a profile -> (busy us: the union of their intervals,
+    the 8 names with the most device time, as (name, us))."""
+    from collections import defaultdict
+
+    busy_us, end_us = 0.0, None
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if end_us is None or start > end_us:
+            busy_us += stop - start
+            end_us = stop
+        elif stop > end_us:
+            busy_us += stop - end_us
+            end_us = stop
+    by_name = defaultdict(float)
+    for e in events:
+        by_name[e.name] += e.time_range.elapsed_us()
+    return busy_us, sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+
+
 def profile_main_path(dev, chunks, params, card: str) -> None:
     """Phase 4: one more pass of the main path (fresh runner and index) under
     torch.profiler: the device's busy share of the wall time (the union of
@@ -387,8 +425,6 @@ def profile_main_path(dev, chunks, params, card: str) -> None:
     Only the profiler's own failures (it cannot start, or records no device
     activity) are reported as not measured; an error of the data path ends
     the run."""
-    from collections import defaultdict
-
     from torch.profiler import ProfilerActivity, profile
 
     from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
@@ -432,21 +468,183 @@ def profile_main_path(dev, chunks, params, card: str) -> None:
     if not events:
         log(f"phase 4 on {card}: profiled wall {wall:.3f} s; device busy share not measured ({why})")
         return
-    busy_us, end_us = 0.0, None
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
-        if end_us is None or start > end_us:
-            busy_us += stop - start
-            end_us = stop
-        elif stop > end_us:
-            busy_us += stop - end_us
-            end_us = stop
-    by_name = defaultdict(float)
-    for e in events:
-        by_name[e.name] += e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    busy_us, top = device_busy(events)
     log(f"phase 4 on {card}: profiled wall {wall:.3f} s, device busy {busy_us / 1e3:.3f} ms = "
         f"{busy_us / 1e6 / wall:.2%} of wall (idle {1 - busy_us / 1e6 / wall:.2%}); device time by name (ms): "
         + "; ".join(f"{name[:60]} {us / 1e3:.3f}" for name, us in top))
+
+
+def batch_step(dev, chunks, card: str):
+    """Phase 5: ``datapath_step`` on the card, its checks, and its kernels
+    against their plain versions. Returns (launches, errors, timings, bounds)."""
+    from skyplane_tpu_torch.ops import kernels
+    from skyplane_tpu_torch.ops.fingerprint import MAX_SEGMENT_BYTES, N_LANES
+    from skyplane_tpu_torch.ops.host_fallback import blockpack_decode_host
+    from skyplane_tpu_torch.ops.pipeline import datapath_step
+    from skyplane_tpu_torch.ops.u32 import M31
+    from skyplane_tpu_torch.state import device_tables
+
+    tables = device_tables(dev)
+    bucket = CHUNK_MB << 20
+    rows = np.stack([np.frombuffer(c, np.uint8) for c in chunks[:MAX_BATCH]])
+    batch = torch.from_numpy(rows).to(dev)
+    step = dict(block_bytes=STEP_BLOCK, fp_seg_bytes=STEP_FP_SEG, mask_bits=STEP_MASK_BITS)
+
+    sync(dev)
+    kernels.reset_launch_counts()
+    out = datapath_step(batch, **step)
+    sync(dev)
+    launches = kernels.launch_counts()
+    log(f"phase 5: datapath_step B={MAX_BATCH} N={bucket} {step}: kernel launches {launches}")
+    if any(launches[k] == 0 for k in SLICE2):
+        raise AssertionError(f"a kernel of the batch step never launched: {launches}")
+
+    # the entry() twin on the card equals its CPU run (plain versions)
+    from skyplane_tpu_torch.entry import entry
+
+    fn, args = entry()
+    fn_cpu, args_cpu = entry(device="cpu")
+    got, want = fn(*args), fn_cpu(*args_cpu)
+    entry_err = max(max_abs_err(got[k].cpu(), want[k]) for k in want)
+    if entry_err:
+        raise AssertionError(f"entry() on the card differs from its CPU run by {entry_err}")
+
+    # the outputs: shapes, types, ranges, and every row's literals round trip
+    want_shapes = {
+        "candidates": ((MAX_BATCH, bucket), torch.bool),
+        "tags": ((MAX_BATCH, bucket // STEP_BLOCK), torch.uint8),
+        "literals": ((MAX_BATCH, bucket), torch.uint8),
+        "n_lit": ((MAX_BATCH,), torch.int32),
+        "fp_lanes": ((MAX_BATCH, bucket // STEP_FP_SEG, N_LANES), torch.int32),
+    }
+    for k, (shape, dtype) in want_shapes.items():
+        if tuple(out[k].shape) != shape or out[k].dtype != dtype or out[k].device != batch.device:
+            raise AssertionError(f"{k}: {out[k].dtype} {tuple(out[k].shape)} on {out[k].device}, want {dtype} {shape}")
+    lanes = out["fp_lanes"]
+    if int(lanes.min()) < 0 or int(lanes.max()) >= M31:
+        raise AssertionError("fp_lanes outside [0, M31)")
+    tags_np, lit, n_lit = out["tags"].cpu().numpy(), out["literals"].cpu(), out["n_lit"].cpu().numpy()
+    for i in range(MAX_BATCH):
+        if not 0 <= n_lit[i] <= bucket or lit[i, n_lit[i]:].any():
+            raise AssertionError(f"row {i}: n_lit {n_lit[i]} or a nonzero literal tail")
+        back = blockpack_decode_host(tags_np[i], lit[i, : n_lit[i]].numpy(), STEP_BLOCK)
+        if not np.array_equal(back, rows[i]):
+            raise AssertionError(f"row {i}: literals do not decode to the row")
+    tag_counts = np.bincount(tags_np.reshape(-1), minlength=3).tolist()
+    n_cand = int(out["candidates"].sum())
+    log(f"phase 5: entry() twin on the card equals its CPU run; outputs checked; all {MAX_BATCH} rows decode byte-identical from (tags, literals[:n_lit]); "
+        f"tags zero/const/literal {tag_counts}; literal bytes {int(n_lit.sum())} of {MAX_BATCH * bucket}; candidates {n_cand}")
+
+    # each kernel == its plain version: the step's rows, then adversarial rows
+    rng = np.random.default_rng(2)
+    adv = rows.copy()
+    adv[4] = 0
+    adv[5] = 0x5A
+    adv[6] = np.tile(rng.integers(0, 256, 1024, dtype=np.uint8), bucket // 1024)
+    adv[7] = rng.integers(0, 256, bucket, dtype=np.uint8)
+    adv_batch = torch.from_numpy(adv).to(dev)
+    errs = {k: 0 for k in SLICE2}
+    for b in (batch, adv_batch):
+        errs["gear_mask"] = max(errs["gear_mask"], max_abs_err(
+            kernels.gear_mask(b, tables, STEP_MASK_BITS), kernels.gear_mask_plain(b, tables, STEP_MASK_BITS)))
+        errs["segment_fp_fixed"] = max(errs["segment_fp_fixed"], max_abs_err(
+            kernels.segment_fp_fixed(b, STEP_FP_SEG, tables), kernels.segment_fp_fixed_plain(b, STEP_FP_SEG, tables)))
+        got, want = kernels.blockpack_encode(b, STEP_BLOCK), kernels.blockpack_encode_plain(b, STEP_BLOCK)
+        errs["blockpack_encode"] = max([errs["blockpack_encode"]] + [max_abs_err(g, w) for g, w in zip(got, want)])
+        torch.cuda.empty_cache()
+    adv_tags = np.bincount(kernels.blockpack_encode(adv_batch, STEP_BLOCK)[0].cpu().numpy().reshape(-1), minlength=3)
+    stride_errs = {}
+    for seg in STEP_EXTRA_STRIDES:
+        stride_errs[seg] = max_abs_err(kernels.segment_fp_fixed(batch, seg, tables), kernels.segment_fp_fixed_plain(batch, seg, tables))
+        torch.cuda.empty_cache()
+    errs["segment_fp_fixed"] = max([errs["segment_fp_fixed"]] + list(stride_errs.values()))
+    sync(dev)
+    log(f"phase 5: max |kernel - plain| {errs} (step rows and adversarial rows: zero, constant 0x5A, "
+        f"repeated 1 KiB, random; their tags zero/const/literal {adv_tags.tolist()}); "
+        f"segment_fp_fixed at strides {list(STEP_EXTRA_STRIDES)}: {stride_errs}")
+    if any(errs.values()) or min(adv_tags) == 0:
+        raise AssertionError(f"a batch-step kernel disagrees with its plain version: {errs}, tags {adv_tags.tolist()}")
+
+    # times at the step's shapes; the plain versions are the same arithmetic, no yardstick of speed
+    t = {
+        "gear_mask": (
+            time_ms(lambda: kernels.gear_mask(batch, tables, STEP_MASK_BITS), 50),
+            time_ms(lambda: kernels.gear_mask_plain(batch, tables, STEP_MASK_BITS), 3, 1),
+        ),
+        "segment_fp_fixed": (
+            time_ms(lambda: kernels.segment_fp_fixed(batch, STEP_FP_SEG, tables), 50),
+            time_ms(lambda: kernels.segment_fp_fixed_plain(batch, STEP_FP_SEG, tables), 3, 1),
+        ),
+        "blockpack_encode": (
+            time_ms(lambda: kernels.blockpack_encode(batch, STEP_BLOCK), 50),
+            time_ms(lambda: kernels.blockpack_encode_plain(batch, STEP_BLOCK), 3, 1),
+        ),
+    }
+    torch.cuda.empty_cache()
+    stride_ms = {seg: time_ms(lambda: kernels.segment_fp_fixed(batch, seg, tables), 20) for seg in STEP_EXTRA_STRIDES}
+    step_ms = time_ms(lambda: datapath_step(batch, **step), 20)
+    n_in = MAX_BATCH * bucket
+    nonzero = int((batch != 0).sum().item())
+    bounds = {
+        # read the bytes and the table, write one byte per byte. Per byte: the
+        # hash step (one shift-add) and the top-bits test
+        "gear_mask": bound_ms(n_in + 1024 + n_in, 2 * n_in),
+        # read the bytes and the power slice r^(S-1-i), write the lanes. Per
+        # nonzero byte and lane: one 32 x 32 -> 64-bit multiply-add, two
+        # 32-bit instructions
+        "segment_fp_fixed": bound_ms(
+            n_in + 4 * N_LANES * min(STEP_FP_SEG, MAX_SEGMENT_BYTES) + 4 * lanes.numel(), 2 * N_LANES * nonzero
+        ),
+        # read the bytes; write tags, literals (the zero tail too) and n_lit.
+        # Per byte: one compare with the block's first
+        "blockpack_encode": bound_ms(n_in + out["tags"].numel() + n_in + 4 * MAX_BATCH, n_in),
+    }
+    for name, (ms, plain_ms) in t.items():
+        b, by = bounds[name]
+        log(f"  {name}: {ms:.4f} ms/launch (plain {plain_ms:.3f} ms), bound {b:.4f} ms ({by}), {b / ms:.1%} of bound")
+    log("  segment_fp_fixed at other strides: " + ", ".join(f"S={seg} {ms:.4f} ms" for seg, ms in stride_ms.items()))
+    log(f"phase 5 on {card}: datapath_step {step_ms:.4f} ms per call at B={MAX_BATCH} x {bucket} "
+        f"= {n_in / step_ms / 1e6:.2f} GB/s of input")
+    profile_step(batch, step, card)
+    return launches, errs, t, bounds
+
+
+def profile_step(batch, step: dict, card: str, reps: int = 20) -> None:
+    """Phase 5's trace: ``reps`` steps back to back under torch.profiler; the
+    device's busy share of their wall time and device time by kernel. Only
+    the profiler's own failures read "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from skyplane_tpu_torch.ops.pipeline import datapath_step
+
+    datapath_step(batch, **step)
+    sync(batch.device)
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as err:  # noqa: BLE001 — the profiler, not the port
+        log(f"phase 5: step trace not measured (profiler did not start: {err!r})")
+        return
+    try:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            datapath_step(batch, **step)
+        sync(batch.device)
+        wall = time.perf_counter() - t0
+    finally:
+        prof.stop()
+    try:
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as err:  # noqa: BLE001 — the profiler, not the port
+        log(f"phase 5: step trace not measured (profiler events unreadable: {err!r})")
+        return
+    if not events:
+        log(f"phase 5: step trace not measured (no device events traced; wall {wall * 1e3 / reps:.4f} ms per step)")
+        return
+    busy_us, top = device_busy(events)
+    log(f"phase 5 on {card}: {reps} steps traced, wall {wall * 1e3 / reps:.4f} ms per step, device busy "
+        f"{busy_us / 1e3 / reps:.4f} ms per step = {busy_us / 1e6 / wall:.2%} of wall (idle {1 - busy_us / 1e6 / wall:.2%}); "
+        "device time per step by name (ms): " + "; ".join(f"{name[:60]} {us / 1e3 / reps:.4f}" for name, us in top))
 
 
 def main() -> int:
@@ -476,11 +674,19 @@ def main() -> int:
 
     launches = main_path(dev, chunks, params, card)
     profile_main_path(dev, chunks, params, card)
+    step_launches, step_errs, step_timings, step_bounds = batch_step(dev, chunks, card)
+    launches.update({k: step_launches[k] for k in SLICE2})
+    errs.update(step_errs)
+    timings.update(step_timings)
+    bounds.update(step_bounds)
 
     replaces = {
         "gear_candidates": ("skyplane_tpu_torch/csrc/gear_candidates.cu", "skyplane_tpu/ops/pallas_kernels.py:48"),
         "compact_candidates": ("skyplane_tpu_torch/csrc/compact_candidates.cu", "skyplane_tpu/ops/fused_cdc.py:90"),
         "segment_fp": ("skyplane_tpu_torch/csrc/segment_fp.cu", "skyplane_tpu/ops/fused_cdc.py:108"),
+        "gear_mask": ("skyplane_tpu_torch/csrc/gear_mask.cu", "skyplane_tpu/ops/pallas_kernels.py:48"),
+        "segment_fp_fixed": ("skyplane_tpu_torch/csrc/segment_fp_fixed.cu", "skyplane_tpu/ops/pallas_kernels.py:139"),
+        "blockpack_encode": ("skyplane_tpu_torch/csrc/blockpack_encode.cu", "skyplane_tpu/ops/blockpack.py:44"),
     }
     rows = []
     for name, (source, rep) in replaces.items():

@@ -7,5 +7,6 @@
 - :mod:`skyplane_tpu_torch.ops.kernels`      — the CUDA kernels, their plain versions and launch counts
 - :mod:`skyplane_tpu_torch.ops.fused_cdc`    — call A / call B over a padded batch
 - :mod:`skyplane_tpu_torch.ops.batch_runner` — micro-batching across sender workers
-- :mod:`skyplane_tpu_torch.ops.pipeline`     — DataPathProcessor (process / restore)
+- :mod:`skyplane_tpu_torch.ops.blockpack`    — blockpack container (host) and device encode/decode
+- :mod:`skyplane_tpu_torch.ops.pipeline`     — datapath_step (the fused batch step), DataPathProcessor
 """

@@ -7,9 +7,11 @@ in stream order. Container layout (little-endian):
   magic 0xB1 0x0C | ver(1) | block_log2(1) | n_raw_bytes(8) | n_lit_bytes(8)
   | packed 2-bit tags (ceil(n_blocks/4) bytes) | literal bytes
 
-This slice encodes and decodes on the host with numpy
+The container is encoded and decoded on the host with numpy
 (``ops/host_fallback.py``), byte-identical to the JAX package's native,
-numpy and device paths; the device encode is not ported yet.
+numpy and device paths. ``encode_device`` is the batch step's device encode
+(the ``blockpack_encode`` CUDA kernel on a card, its plain version on the
+CPU); ``decode_device``, its inverse, is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+import torch
 
 from skyplane_tpu_torch.exceptions import CodecException
 
@@ -29,6 +32,37 @@ TAG_CONST = 1
 TAG_LITERAL = 2
 
 _HEAD = struct.Struct("<BBQQ")
+
+
+def encode_device(data: torch.Tensor, block_bytes: int = DEFAULT_BLOCK_BYTES):
+    """[B, N] uint8 (N divisible by block_bytes) -> (tags [B, N/block_bytes]
+    uint8, literals [B, N] uint8, n_lit [B] int32): the reference's
+    ``encode_device`` for each row.
+
+    ``literals`` holds the first ``n_lit`` valid bytes of each row; the tail
+    is zero. On a CUDA tensor this launches the ``blockpack_encode`` kernel.
+    """
+    from skyplane_tpu_torch.ops import kernels
+
+    return kernels.blockpack_encode(data, block_bytes)
+
+
+def decode_device(tags: torch.Tensor, literals: torch.Tensor, block_bytes: int = DEFAULT_BLOCK_BYTES) -> torch.Tensor:
+    """Inverse of ``encode_device``: (tags [..., NB], literals [..., L]) ->
+    [..., NB * block_bytes] uint8. Out-of-range literal indices (a zero
+    block after the last kept byte) are clamped, as the reference's gather
+    clamps them; they only ever feed zero blocks."""
+    kept = torch.where(tags == TAG_LITERAL, block_bytes, torch.where(tags == TAG_CONST, 1, 0)).long()
+    offsets = torch.cumsum(kept, -1) - kept
+    col = torch.arange(block_bytes, device=tags.device)
+    index = torch.where((tags == TAG_LITERAL)[..., None], offsets[..., None] + col, offsets[..., None])
+    shape = tags.shape[:-1] + (tags.shape[-1] * block_bytes,)
+    if literals.shape[-1] == 0:
+        return torch.zeros(shape, dtype=torch.uint8, device=tags.device)
+    index = index.reshape(shape).clamp(max=literals.shape[-1] - 1)
+    gathered = literals.gather(-1, index).view(tags.shape + (block_bytes,))
+    out = torch.where((tags == TAG_ZERO)[..., None], torch.zeros_like(gathered), gathered)
+    return out.reshape(shape)
 
 
 def _pack_tags(tags: np.ndarray) -> bytes:

@@ -82,6 +82,22 @@ def segment_fingerprint_cumsum(
     return torch.stack(lanes, dim=-1)
 
 
+def fixed_stride_lanes(chunk_batch: torch.Tensor, fp_seg_bytes: int, tables) -> torch.Tensor:
+    """[B, N] uint8 -> [B, N/fp_seg_bytes, 8] int32 lanes (uint32 values
+    in [0, M31)) of the FIXED-stride segments, for the batch step.
+
+    On a CUDA tensor this always launches the ``segment_fp_fixed`` kernel,
+    which covers every stride that divides N up to 2^24 (the reference's
+    Pallas kernel covers fewer and falls through to XLA for the rest); on the
+    CPU it runs the scatter-add form above. Power indices past
+    MAX_SEGMENT_BYTES - 1 are clamped in both, as JAX's gather clamps them.
+    ``tables`` is the ``DeviceTables`` of the data's device.
+    """
+    from skyplane_tpu_torch.ops import kernels
+
+    return kernels.segment_fp_fixed(chunk_batch, fp_seg_bytes, tables)
+
+
 def finalize_fingerprint(lanes: np.ndarray, length: int) -> str:
     """Mix one segment's 8 uint32 lanes + length into the 128-bit hex wire fingerprint."""
     h = hashlib.blake2b(np.asarray(lanes, dtype="<u4").tobytes() + int(length).to_bytes(8, "little"), digest_size=16)

@@ -14,6 +14,19 @@ the per-chunk sender path (sources in ``skyplane_tpu_torch/csrc/``):
   ``_fp_body`` + ``fingerprint.py`` ``segment_fingerprint_cumsum``). Bound by
   integer work and power-table reads.
 
+Three more carry the fused batch step ``datapath_step`` (``ops/pipeline.py``):
+
+- ``gear_mask`` (K-A', ``csrc/gear_mask.cu``) is K-A's byte-mask mode: the
+  same hash, and the whole [B, N] candidate mask, one byte per position. A
+  kernel of its own, so K-A's source and the gateway path's build stay as
+  they were. Bound by bytes.
+- ``segment_fp_fixed`` (K-D, ``csrc/segment_fp_fixed.cu``) replaces the
+  Pallas fixed-stride fingerprint (``pallas_kernels.py``
+  ``segment_fp_fixed_pallas``) and its XLA fall-through, for every stride
+  that divides N. Bound by integer work.
+- ``blockpack_encode`` (K-E, ``csrc/blockpack_encode.cu``) replaces the XLA
+  ``blockpack.py`` ``encode_device``. Bound by bytes.
+
 Each source file says how its design answers its bound. Each wrapper checks
 its operands, then runs the plain version when the batch lies on the CPU and
 launches the kernel when it lies on a CUDA device; a failed launch raises,
@@ -41,7 +54,13 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from skyplane_tpu_torch.ops.fingerprint import MAX_SEGMENT_BYTES, N_LANES, segment_fingerprint_cumsum
+from skyplane_tpu_torch.ops.blockpack import TAG_CONST, TAG_LITERAL, TAG_ZERO
+from skyplane_tpu_torch.ops.fingerprint import (
+    MAX_SEGMENT_BYTES,
+    N_LANES,
+    segment_fingerprint_cumsum,
+    segment_fingerprint_device,
+)
 from skyplane_tpu_torch.ops.gear import boundary_candidate_mask, gear_hash
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -50,6 +69,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 GEAR_TILE = 8192  # bytes per K-A block: one candidate count per tile (K-B's scan unit)
 FP_TILE = 4096  # bytes per K-C block
+FP_FIXED_STEP = 4096  # columns per K-D block step (256 threads x 16 bytes)
+FP_FIXED_BLOCKS = 2048  # K-D splits segments over blocks until about this many run (132 SMs x 8 resident, twice)
+MAX_FIXED_SEG = 1 << 24  # the reference's u32 limb sums wrap past this segment length
 MAX_ROWS = 65535  # grid y limit
 
 _P = ctypes.c_void_p
@@ -60,6 +82,9 @@ _KERNELS = {
     "gear_candidates": ("gear_candidates.cu", [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]),
     "compact_candidates": ("compact_candidates.cu", [_P, _P, _P, _LL, _I, _I, _I, _P]),
     "segment_fp": ("segment_fp.cu", [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]),
+    "gear_mask": ("gear_mask.cu", [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]),
+    "segment_fp_fixed": ("segment_fp_fixed.cu", [_P, _P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _I, _I, _P]),
+    "blockpack_encode": ("blockpack_encode.cu", [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -162,16 +187,24 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 
 def _check_batch(batch: torch.Tensor) -> Tuple[int, int]:
-    if batch.dtype != torch.uint8 or batch.dim() != 2 or not batch.is_contiguous():
-        raise ValueError(f"batch must be a contiguous [B, bucket] uint8 tensor, got {batch.dtype} {tuple(batch.shape)}")
-    b, bucket = batch.shape
-    if not 1 <= b <= MAX_ROWS:
-        raise ValueError(f"batch rows {b} outside [1, {MAX_ROWS}]")
-    if bucket % GEAR_TILE or not 0 < bucket < (1 << 31):
+    b, bucket = _check_rows(batch)
+    if bucket % GEAR_TILE:
         raise ValueError(f"bucket {bucket} must be a positive multiple of {GEAR_TILE} below 2^31")
     if batch.device.type == "cuda" and batch.data_ptr() % 16:
         raise ValueError("batch must be 16-byte aligned")
     return b, bucket
+
+
+def _check_rows(batch: torch.Tensor) -> Tuple[int, int]:
+    """A [B, N] uint8 batch of any row length (the batch step's kernels)."""
+    if batch.dtype != torch.uint8 or batch.dim() != 2 or not batch.is_contiguous():
+        raise ValueError(f"batch must be a contiguous [B, N] uint8 tensor, got {batch.dtype} {tuple(batch.shape)}")
+    b, n = batch.shape
+    if not 1 <= b <= MAX_ROWS:
+        raise ValueError(f"batch rows {b} outside [1, {MAX_ROWS}]")
+    if not 0 < n < (1 << 31):
+        raise ValueError(f"row length {n} outside [1, 2^31)")
+    return b, n
 
 
 def _check_operand(t: torch.Tensor, shape, dtype, device, what: str) -> None:
@@ -298,3 +331,135 @@ def segment_fp(batch: torch.Tensor, ends_slots: torch.Tensor, tables) -> torch.T
         acc.data_ptr(), out.data_ptr(), bucket, b, n_slots, MAX_SEGMENT_BYTES,
     )
     return out
+
+
+# ---- K-A': the full-width candidate mask (K-A's byte-mask mode) ----
+
+
+def gear_mask_plain(batch: torch.Tensor, tables, mask_bits: int) -> torch.Tensor:
+    """Plain version of K-A': ``boundary_candidate_mask(gear_hash(row))`` per row."""
+    return boundary_candidate_mask(gear_hash(batch, tables.gear), mask_bits)
+
+
+def gear_mask(batch: torch.Tensor, tables, mask_bits: int) -> torch.Tensor:
+    """[B, N] uint8 -> [B, N] bool: True where the top ``mask_bits`` of the
+    gear hash at that position are zero (no length limit: every position).
+
+    Rows are zero-padded on the right to a multiple of GEAR_TILE when N is
+    not one; the hash is causal, so no output below N changes.
+    """
+    b, n = _check_rows(batch)
+    if not 1 <= mask_bits <= 31:
+        raise ValueError(f"mask_bits {mask_bits} outside [1, 31]")
+    n_pad = -(-n // GEAR_TILE) * GEAR_TILE
+    padded = batch
+    if n_pad != n:
+        padded = torch.zeros((b, n_pad), dtype=torch.uint8, device=batch.device)
+        padded[:, :n] = batch
+    if batch.device.type == "cpu":
+        return gear_mask_plain(padded, tables, mask_bits)[:, :n].contiguous()
+    if padded.data_ptr() % 16:
+        raise ValueError("batch must be 16-byte aligned")
+    out = torch.empty((b, n), dtype=torch.uint8, device=batch.device)
+    _launch(
+        "gear_mask", batch.device, padded.data_ptr(), tables.gear_bits.data_ptr(), out.data_ptr(), n_pad, n, b,
+        mask_bits, int(n % 16 == 0),
+    )
+    return out.view(torch.bool)
+
+
+# ---- K-D: fixed-stride segment fingerprints ----
+
+
+def _check_stride(n: int, seg: int) -> None:
+    if seg < 1 or n % seg:
+        raise ValueError(f"N={n} must be a multiple of fp_seg_bytes={seg}")
+    if seg > MAX_FIXED_SEG:
+        raise ValueError(f"fp_seg_bytes={seg} exceeds {MAX_FIXED_SEG}, past which the reference's limb sums wrap")
+
+
+def segment_fp_fixed_plain(batch: torch.Tensor, seg: int, tables) -> torch.Tensor:
+    """Plain version of K-D: the scatter-add form (``segment_fingerprint_device``)
+    over fixed strides, power index ``min(seg-1-col, MAX_SEGMENT_BYTES-1)``."""
+    b, n = batch.shape
+    n_seg = n // seg
+    dev = batch.device
+    pos = torch.arange(n, device=dev)
+    seg_ids = (torch.arange(b, device=dev)[:, None] * n_seg + pos // seg).reshape(-1)
+    rev_pos = (seg - 1 - pos % seg).clamp(max=MAX_SEGMENT_BYTES - 1).expand(b, n).reshape(-1)
+    lanes = segment_fingerprint_device(batch.reshape(-1), seg_ids, rev_pos, b * n_seg, tables.powers)
+    return lanes.view(b, n_seg, N_LANES).to(torch.int32)
+
+
+def segment_fp_fixed(batch: torch.Tensor, seg: int, tables) -> torch.Tensor:
+    """[B, N] uint8 -> [B, N/seg, 8] int32 lanes in [0, M31) (uint32 values)
+    of the stride-``seg`` segments, for every ``seg`` that divides N up to
+    2^24. Power indices past MAX_SEGMENT_BYTES - 1 are clamped, as the
+    reference's gather clamps them."""
+    b, n = _check_rows(batch)
+    _check_stride(n, seg)
+    if batch.device.type == "cpu":
+        return segment_fp_fixed_plain(batch, seg, tables)
+    n_seg = n // seg
+    vec = seg % 16 == 0 and n % 16 == 0 and batch.data_ptr() % 16 == 0
+    step = FP_FIXED_STEP if vec else 256
+    splits = max(1, min(-(-FP_FIXED_BLOCKS // (b * n_seg)), -(-seg // step)))
+    cols = -(-seg // splits)
+    cols = -(-cols // step) * step  # whole block steps per split
+    splits = -(-seg // cols)
+    if n_seg * splits >= 1 << 31:
+        raise ValueError(f"{n_seg} segments of {seg} bytes exceed the grid")
+    acc = torch.empty((b, n_seg, N_LANES), dtype=torch.int64, device=batch.device)  # u64 scratch
+    out = torch.empty((b, n_seg, N_LANES), dtype=torch.int32, device=batch.device)
+    _launch(
+        "segment_fp_fixed", batch.device, batch.data_ptr(), tables.powers_bits.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), n, seg, b, splits, cols, MAX_SEGMENT_BYTES, int(vec),
+    )
+    return out
+
+
+# ---- K-E: blockpack encode ----
+
+
+def blockpack_encode_plain(batch: torch.Tensor, block_bytes: int):
+    """Plain version of K-E: the reference's ``encode_device`` per row (block
+    tags, then a stable compaction by prefix sum and scatter)."""
+    b, n = batch.shape
+    nb = n // block_bytes
+    blocks = batch.view(b, nb, block_bytes)
+    first = blocks[:, :, :1]
+    is_const = (blocks == first).all(-1)
+    is_zero = is_const & (first[:, :, 0] == 0)
+    tags = torch.where(is_zero, TAG_ZERO, torch.where(is_const, TAG_CONST, TAG_LITERAL)).to(torch.uint8)
+    kept = torch.where(tags == TAG_LITERAL, block_bytes, torch.where(tags == TAG_CONST, 1, 0)).long()
+    offsets = torch.cumsum(kept, -1) - kept
+    col = torch.arange(block_bytes, device=batch.device)
+    keep = (tags == TAG_LITERAL)[:, :, None] | ((tags == TAG_CONST)[:, :, None] & (col == 0))
+    dest = torch.where(keep, offsets[:, :, None] + col, n).view(b, n)  # dropped bytes land in column n
+    literals = torch.zeros((b, n + 1), dtype=torch.uint8, device=batch.device)
+    literals.scatter_(1, dest, batch)
+    return tags, literals[:, :n].contiguous(), kept.sum(-1).to(torch.int32)
+
+
+def blockpack_encode(batch: torch.Tensor, block_bytes: int):
+    """[B, N] uint8 -> (tags [B, N/block_bytes] uint8, literals [B, N] uint8,
+    n_lit [B] int32): per block zero (0), constant (1) or literal (2); the
+    kept bytes (a literal block whole, one byte of a constant block) as a
+    dense prefix in block order, zero after ``n_lit``."""
+    b, n = _check_rows(batch)
+    if block_bytes < 1 or n % block_bytes:
+        raise ValueError(f"N={n} must be a multiple of block_bytes={block_bytes}")
+    if batch.device.type == "cpu":
+        return blockpack_encode_plain(batch, block_bytes)
+    nb = n // block_bytes
+    dev = batch.device
+    tags = torch.empty((b, nb), dtype=torch.uint8, device=dev)
+    offsets = torch.empty((b, nb), dtype=torch.int32, device=dev)  # scratch
+    literals = torch.empty((b, n), dtype=torch.uint8, device=dev)
+    n_lit = torch.empty((b,), dtype=torch.int32, device=dev)
+    vec = block_bytes % 16 == 0 and n % 16 == 0 and batch.data_ptr() % 16 == 0
+    _launch(
+        "blockpack_encode", dev, batch.data_ptr(), tags.data_ptr(), offsets.data_ptr(), literals.data_ptr(),
+        n_lit.data_ptr(), n, block_bytes, b, int(vec),
+    )
+    return tags, literals, n_lit

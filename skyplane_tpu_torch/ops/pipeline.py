@@ -1,4 +1,12 @@
-"""The host orchestration of the data path: ``DataPathProcessor``.
+"""The fused batch step ``datapath_step`` and the host orchestration of the
+data path, ``DataPathProcessor``.
+
+``datapath_step`` is the flagship device function (what ``entry.py``
+exposes): for a batch of equal-length chunks it computes the full-width CDC
+candidate mask, the blockpack tags and compacted literals, and the
+fixed-stride 8-lane segment fingerprints, through three CUDA kernels on one
+stream of the card (``gear_mask``, ``blockpack_encode``,
+``segment_fp_fixed``), or their plain versions on the CPU.
 
 Sender (``process``): CDC boundaries and segment fingerprints on the device
 (``FusedCDCFP``, micro-batched across workers by ``DeviceBatchRunner`` when
@@ -17,9 +25,10 @@ from __future__ import annotations
 import hashlib
 import threading
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from skyplane_tpu_torch.chunk import Codec, WireProtocolHeader
 from skyplane_tpu_torch.exceptions import ChecksumMismatchException, CodecException
@@ -28,6 +37,73 @@ from skyplane_tpu_torch.ops.bufpool import BufferPool, bucket_size
 from skyplane_tpu_torch.ops.cdc import CDCParams
 from skyplane_tpu_torch.ops.codecs import CodecSpec, get_codec, get_codec_by_id
 from skyplane_tpu_torch.ops.dedup import PooledChunk, SegmentStore, SenderDedupIndex, build_recipe, parse_recipe
+from skyplane_tpu_torch.state import DeviceTables, device_tables
+
+_step_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+_step_lock = threading.Lock()
+
+
+def _step_stream(dev: torch.device) -> "torch.cuda.Stream":
+    with _step_lock:
+        s = _step_streams.get(dev)
+        if s is None:
+            s = _step_streams[dev] = torch.cuda.Stream(dev)
+        return s
+
+
+def _datapath_step_impl(batch: torch.Tensor, block_bytes: int, fp_seg_bytes: int, mask_bits: int, tables: DeviceTables):
+    from skyplane_tpu_torch.ops import kernels
+    from skyplane_tpu_torch.ops.blockpack import encode_device
+    from skyplane_tpu_torch.ops.fingerprint import fixed_stride_lanes
+
+    candidates = kernels.gear_mask(batch, tables, mask_bits)
+    tags, literals, n_lit = encode_device(batch, block_bytes=block_bytes)
+    fp_lanes = fixed_stride_lanes(batch, fp_seg_bytes, tables)
+    return dict(candidates=candidates, tags=tags, literals=literals, n_lit=n_lit, fp_lanes=fp_lanes)
+
+
+def datapath_step(
+    batch: torch.Tensor,
+    block_bytes: int = 512,
+    fp_seg_bytes: int = 1 << 16,
+    mask_bits: int = 16,
+    tables: Optional[DeviceTables] = None,
+) -> Dict[str, torch.Tensor]:
+    """Fused per-batch device step. batch: [B, N] uint8 on the card (or on the
+    CPU, for the plain versions); N % fp_seg_bytes == N % block_bytes == 0.
+
+    Returns a dict of tensors on the batch's device:
+      candidates [B, N] bool — CDC boundary candidates
+      tags       [B, N/block_bytes] uint8 — blockpack block tags
+      literals   [B, N] uint8 — compacted literal bytes (dense prefix, zero tail)
+      n_lit      [B] int32 — valid literal byte count
+      fp_lanes   [B, N/fp_seg_bytes, 8] int32 — fixed-stride segment
+                 fingerprints (uint32 values in [0, M31))
+
+    On the card the three kernels run on one stream of the step's own, which
+    waits for the caller's stream first; the caller's stream then waits for
+    it, so the outputs are ready in the caller's stream order.
+    """
+    if batch.dim() != 2:
+        raise ValueError(f"batch must be [B, N], got shape {tuple(batch.shape)}")
+    n = batch.shape[-1]
+    if n % fp_seg_bytes or n % block_bytes:
+        raise ValueError(f"N={n} must be divisible by fp_seg_bytes and block_bytes")
+    tables = device_tables(batch.device) if tables is None else tables
+    if tables.device != batch.device:
+        raise ValueError(f"tables on {tables.device}, batch on {batch.device}")
+    if batch.device.type == "cpu":
+        return _datapath_step_impl(batch, block_bytes, fp_seg_bytes, mask_bits, tables)
+    caller = torch.cuda.current_stream(batch.device)
+    stream = _step_stream(batch.device)
+    stream.wait_stream(caller)
+    with torch.cuda.stream(stream):
+        out = _datapath_step_impl(batch, block_bytes, fp_seg_bytes, mask_bits, tables)
+    batch.record_stream(stream)
+    caller.wait_stream(stream)
+    for t in out.values():
+        t.record_stream(caller)
+    return out
 
 
 @dataclass

@@ -98,7 +98,9 @@ def test_kernel_launches_counted(dev):
     rng = np.random.default_rng(3)
     chunk = rng.integers(0, 256, 1 << 16, dtype=np.uint8)
     (ends, fps), = fused(chunk[None, :], [len(chunk)])
-    assert kernels.launch_counts() == {"gear_candidates": 1, "compact_candidates": 1, "segment_fp": 1}
+    want = {name: 0 for name in kernels.launch_counts()}
+    want.update(gear_candidates=1, compact_candidates=1, segment_fp=1)
+    assert kernels.launch_counts() == want
     want_ends, want_fps = cdc_and_fps_host(chunk, PARAMS)
     np.testing.assert_array_equal(ends, want_ends)
     assert fps == want_fps
@@ -125,3 +127,74 @@ def test_processor_on_card_matches_cpu(dev):
             gi.add(fp, size)
         for fp, size in b.new_fingerprints:
             ci.add(fp, size)
+
+
+# ---- the batch step's kernels: K-A' gear_mask, K-D segment_fp_fixed, K-E blockpack_encode ----
+
+
+def _step_rows(rng, n, block=512):
+    """Random, all-zero, constant, repeated 1 KiB pattern, and mixed blocks."""
+    rows = np.stack([rng.integers(0, 256, n, dtype=np.uint8) for _ in range(5)])
+    rows[1] = 0
+    rows[2] = 0x5A
+    rows[3] = np.tile(rng.integers(0, 256, 1024, dtype=np.uint8), -(-n // 1024))[:n]
+    blocks = rows[4].reshape(-1, block)
+    pick = rng.integers(0, 3, len(blocks))
+    blocks[pick == 0] = 0
+    blocks[pick == 1] = 7
+    return rows
+
+
+@pytest.mark.parametrize("n, mask_bits", [(1 << 17, 12), (3 * 4096, 8), (8192 + 40, 6)])
+def test_gear_mask_matches_plain(dev, n, mask_bits):
+    batch = torch.from_numpy(_step_rows(np.random.default_rng(n), n, 8))
+    got = kernels.gear_mask(batch.to(dev), device_tables(dev), mask_bits)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool
+    assert torch.equal(got.cpu(), kernels.gear_mask(batch, device_tables("cpu"), mask_bits))
+
+
+@pytest.mark.parametrize(
+    "n, seg", [(1 << 18, 4096), (1 << 18, 1 << 16), (1 << 20, 1 << 17), (1 << 20, 1 << 19), (64000, 1000), (12288, 3)]
+)
+def test_segment_fp_fixed_matches_plain(dev, n, seg):
+    """Strides inside and outside the Pallas domain, the clamp past 2^18, and
+    strides that force the kernel's byte path (not a multiple of 16)."""
+    batch = torch.from_numpy(_step_rows(np.random.default_rng(seg), n, 64 if n % 512 else 512))
+    got = kernels.segment_fp_fixed(batch.to(dev), seg, device_tables(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), kernels.segment_fp_fixed(batch, seg, device_tables("cpu")))
+
+
+@pytest.mark.parametrize("n, block", [(1 << 18, 512), (1 << 18, 4096), (12000, 600), (4096, 4)])
+def test_blockpack_encode_matches_plain(dev, n, block):
+    batch = torch.from_numpy(_step_rows(np.random.default_rng(block), n, block))
+    got = kernels.blockpack_encode(batch.to(dev), block)
+    torch.cuda.synchronize()
+    want = kernels.blockpack_encode(batch, block)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_datapath_step_on_card_matches_cpu(dev):
+    from skyplane_tpu_torch.ops.pipeline import datapath_step
+
+    batch = torch.from_numpy(_step_rows(np.random.default_rng(2), 1 << 18))
+    kernels.reset_launch_counts()
+    got = datapath_step(batch.to(dev), block_bytes=512, fp_seg_bytes=1 << 16, mask_bits=16)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["gear_mask"], counts["blockpack_encode"], counts["segment_fp_fixed"]) == (1, 1, 1)
+    want = datapath_step(batch, block_bytes=512, fp_seg_bytes=1 << 16, mask_bits=16, tables=device_tables("cpu"))
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_entry_twin_on_card(dev):
+    from skyplane_tpu_torch.entry import entry
+
+    fn, args = entry()
+    fn_cpu, args_cpu = entry(device="cpu")
+    got, want = fn(*args), fn_cpu(*args_cpu)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k

@@ -284,6 +284,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import pkgutil, importlib, sys, skyplane_tpu_torch\n"
         "for m in pkgutil.walk_packages(skyplane_tpu_torch.__path__, 'skyplane_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from skyplane_tpu_torch.entry import entry\n"
+        "from skyplane_tpu_torch.ops.blockpack import decode_device, encode_device\n"
+        "from skyplane_tpu_torch.ops.fingerprint import fixed_stride_lanes\n"
+        "from skyplane_tpu_torch.ops.kernels import blockpack_encode, gear_mask, segment_fp_fixed\n"
+        "from skyplane_tpu_torch.ops.pipeline import datapath_step\n"
+        "assert 'skyplane_tpu_torch.entry' in sys.modules\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.') or n == 'skyplane_tpu' or n.startswith('skyplane_tpu.'))\n"
         "print(len([n for n in sys.modules if n.startswith('skyplane_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
