@@ -6,12 +6,17 @@ Phases (any failure exits non-zero before the final ``ok`` line):
 
 1. Device, torch and CUDA versions, the card's name and power limit; build
    the CUDA kernels from ``skyplane_tpu_torch/csrc`` (one nvcc per source,
-   all at once) and print the build seconds.
+   all at once) and print the build seconds, each kernel's registers and
+   spills (ptxas), and the integer mma (IMMA) count in the SASS of the two
+   fingerprint kernels, which fails if it is 0.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes (B = 8 rows of an 8 MiB bucket, cap 4096, 2050 slots) with
    a zero row, a short row with its garbage end, sentinel-padded ends and an
-   overflowing cap of 16. Equality is exact (integer outputs). Each kernel
-   and plain version is timed with CUDA events and printed beside its bound.
+   overflowing cap of 16; ``segment_fp`` also on four adversarial rows (ends
+   at every residue mod 64 with ends 1 byte apart and at 64k - 1, 64k,
+   64k + 1; all 0xFF bytes; a segment of 2^19 bytes, clamped; the bucket as
+   the only end). Equality is exact (integer outputs). Each kernel and plain
+   version is timed with CUDA events and printed beside its bound.
 3. The main path: ``DataPathProcessor(codec_name="tpu", dedup=True)`` over a
    ``DeviceBatchRunner(max_batch=8)`` with 16 sender threads, on the bench's
    snapshot-chain corpus (4 snapshots x 6 chunks x 8 MiB, seed 0), with
@@ -30,7 +35,8 @@ Phases (any failure exits non-zero before the final ``ok`` line):
    ``segment_fp_fixed``, ``blockpack_encode``) equals its plain version
    exactly on those rows and on adversarial ones (all-zero, constant, a
    repeated 1 KiB pattern, random), ``segment_fp_fixed`` also at strides
-   4096, 2^17 and 2^19 (past the power table: clamped). Kernel, plain and
+   4096, 2^17, 2^19 (past the power table: clamped) and 64, and at 1000 (its
+   byte path) on the rows cut to 8192000 bytes. Kernel, plain and
    whole-step times with CUDA events, beside each kernel's bound; then 20
    steps under torch.profiler: the device's busy share of their wall time.
 
@@ -66,18 +72,30 @@ SEED = 0
 STEP_BLOCK = 512
 STEP_FP_SEG = 1 << 16
 STEP_MASK_BITS = 16
-STEP_EXTRA_STRIDES = (4096, 1 << 17, 1 << 19)
+STEP_EXTRA_STRIDES = (4096, 1 << 17, 1 << 19, 64)
+STEP_ODD_STRIDE = 1000  # not a multiple of 64: K-D's byte path, on the first 8192000 bytes of each row
 SLICE1 = ("gear_candidates", "compact_candidates", "segment_fp")
 SLICE2 = ("gear_mask", "segment_fp_fixed", "blockpack_encode")
 
-# the card's peak rates (NVIDIA H100 SXM): HBM bytes/s from the data sheet,
-# and the 32-bit integer instruction rate. The data sheet gives 67e12 float32
-# FLOP/s: 128 FP32 lanes per SM, a multiply-add counted as two. A Hopper SM
-# has 64 INT32 lanes, so it issues 67e12 / 2 / 2 integer instructions/s. All
-# three kernels are integer work, so their operations are counted as 32-bit
-# integer instructions.
+# the card's peak rates (NVIDIA H100 SXM): HBM bytes/s from the data sheet;
+# the 32-bit integer instruction rate: the data sheet gives 67e12 float32
+# FLOP/s (128 FP32 lanes per SM, a multiply-add counted as two), and a Hopper
+# SM has 64 INT32 lanes, so it issues 67e12 / 2 / 2 integer instructions/s;
+# and the dense int8 tensor-core rate, 1979e12 operations/s (a multiply-add
+# counted as two). The kernels' CUDA-core work is counted as 32-bit integer
+# instructions at the integer rate; the fingerprint kernels' u8 products
+# (segment_fp, segment_fp_fixed) as tensor-core operations at the int8 rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT_INSTR_PER_S = 67e12 / 4
+PEAK_INT8_TENSOR_OPS_PER_S = 1979e12
+# the fingerprint kernels' work per 64-byte word: its u8 product with the
+# [64, 32] word_limbs matrix (64 x 32 multiply-adds), and 18 integer
+# instructions per word and lane counted from csrc/lane_poly.cuh: word_values
+# joins and exchanges the limbs and folds (10: two shift-adds, three selects,
+# a shuffle, four for the 2^16 weight and the fold), mul_lazy31 (4), the
+# running u64 sum (2), the power read and the zero test (2)
+WORD_TENSOR_OPS = 2 * 64 * 32
+WORD_INT_INSTR = 18 * 8
 
 
 def log(msg: str) -> None:
@@ -175,10 +193,61 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_instr: float):
+def bound_ms(n_bytes: float, n_instr: float, n_tensor_ops: float = 0.0):
+    """The least time for the work: the largest of the bytes at the HBM rate,
+    the integer instructions at the INT32 rate and the u8 tensor-core
+    operations at the int8 rate, and which of bytes or operations it is."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_instr / PEAK_INT_INSTR_PER_S * 1e3
+    t_ops = max(n_instr / PEAK_INT_INSTR_PER_S, n_tensor_ops / PEAK_INT8_TENSOR_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def word_work(batch: torch.Tensor, n_split: int = 0):
+    """(integer instructions, tensor-core operations) that the fingerprint
+    kernels' word design needs for this batch: every word with a nonzero
+    byte, and a second product for each of ``n_split`` words that an end
+    cuts."""
+    words = int((batch.view(-1, 64) != 0).any(1).sum().item()) + n_split
+    return words * WORD_INT_INSTR, words * WORD_TENSOR_OPS
+
+
+def power_rows_read(ends: np.ndarray, bucket: int, max_seg: int) -> int:
+    """The 32-byte rows of word_powers that K-C reads for these ends: a
+    segment ending at c reads rows (c % 64, m) for m below its length / 64."""
+    c = np.minimum(np.maximum(ends.astype(np.int64), 0), bucket)
+    start = np.concatenate([np.zeros((len(c), 1), np.int64), c[:, :-1]], 1)
+    length = np.minimum(c - np.minimum(start, c), max_seg)
+    need = np.zeros(64, np.int64)
+    np.maximum.at(need, (c % 64).reshape(-1), -(-length // 64).reshape(-1))
+    return int(need.sum())
+
+
+def split_words(ends: np.ndarray, bucket: int) -> int:
+    """Words that exactly one end cuts strictly inside (K-C's second product)."""
+    n = 0
+    for row in np.minimum(np.maximum(ends.astype(np.int64), 0), bucket):
+        inside = row[(row % 64 != 0) & (row < bucket)]
+        _, counts = np.unique(inside // 64, return_counts=True)
+        n += int((counts == 1).sum())
+    return n
+
+
+def adversarial_ends_rows(bucket: int, n_slots: int, rng):
+    """K-C's adversarial rows at the main path's shapes: ends at every residue
+    mod 64 (with two ends 1 byte apart and ends at 64k - 1, 64k, 64k + 1), a
+    row of 0xFF bytes, a random row with one segment of 2^19 bytes (past the
+    power table: clamped), and a random row whose only end is the bucket."""
+    rows = rng.integers(0, 256, (4, bucket), dtype=np.uint8)
+    rows[1] = 0xFF
+    ends = np.full((4, n_slots), bucket, np.int32)
+    e = sorted({(1 << 16) * (k + 1) + 64 * k + k for k in range(64)}
+               | {5000, 5001, 8191, 8192, 8193, 3 << 20, (3 << 20) + 1, (3 << 20) + 2})
+    ends[0, : len(e)] = e
+    e1 = np.cumsum(rng.integers(64, 1 << 15, 800))
+    e1 = np.unique(e1[e1 < bucket])
+    ends[1, : len(e1)] = e1
+    ends[2, :3] = [4097, 4097 + (1 << 19), 4097 + (1 << 19) + 63]
+    return rows, ends
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -238,10 +307,17 @@ def check_kernels(dev, chunks, params):
     n_real = int((ends.cpu().numpy() < bucket).sum())
     lanes = kernels.segment_fp(batch, ends, tables)
     errs["segment_fp"] = max_abs_err(lanes, kernels.segment_fp_plain(batch, ends, tables))
+    adv_rows, adv_ends = adversarial_ends_rows(bucket, n_slots, rng)
+    adv_b, adv_e = torch.from_numpy(adv_rows).to(dev), torch.from_numpy(adv_ends).to(dev)
+    adv_err = max_abs_err(kernels.segment_fp(adv_b, adv_e, tables), kernels.segment_fp_plain(adv_b, adv_e, tables))
+    errs["segment_fp"] = max(errs["segment_fp"], adv_err)
+    del adv_b, adv_e
+    torch.cuda.empty_cache()
     sync(dev)
     log(f"phase 2: B={MAX_BATCH} bucket={bucket} cap={cap} n_slots={n_slots}: "
         f"candidates per row {packed_np[:, cap].tolist()}, rows over a cap of 16: {n_over}, real segment ends {n_real} of {MAX_BATCH * n_slots} slots, "
-        f"max |kernel - plain| {errs}")
+        f"max |kernel - plain| {errs}; segment_fp on the adversarial rows (end residues mod 64, 0xFF, a 2^19 "
+        f"segment, the bucket as the only end): {adv_err}")
     if any(errs.values()):
         raise AssertionError(f"kernel disagrees with its plain version: {errs}")
 
@@ -268,8 +344,6 @@ def check_kernels(dev, chunks, params):
         offsets = np.concatenate([[0], np.cumsum(row)[:-1]])
         tiles_needed += int((offsets < cap).sum())
     ends_np = ends.cpu().numpy()
-    seg_len = np.diff(np.concatenate([np.zeros((MAX_BATCH, 1), np.int64), np.minimum(ends_np, bucket)], 1), axis=1)
-    nonzero = int((batch != 0).sum().item())
     bounds = {
         # read bytes + lens + table; write mask bits + tile counts. Per byte:
         # the hash step (one shift-add), the top-bits test, the length test
@@ -278,12 +352,13 @@ def check_kernels(dev, chunks, params):
         # read the tile counts and the needed mask tiles (1 KiB each); write
         # [B, cap+1] i32. Per mask word of a needed tile: a popcount and a scan add
         "compact_candidates": bound_ms(4 * counts.numel() + 1024 * tiles_needed + 4 * packed.numel(), 2 * 256 * tiles_needed),
-        # read bytes, ends and the power-table entries the segments index; write the lanes.
-        # Per nonzero byte and lane: one 32 x 32 -> 64-bit multiply-add into
-        # the u64 sum, two 32-bit instructions (the low and the high half)
+        # read bytes, ends, word_limbs and the word_powers rows the segments
+        # index; write the lanes. Per word with a nonzero byte (twice for a
+        # word an end cuts): its u8 product and 18 integer instructions a lane
         "segment_fp": bound_ms(
-            n_in + 4 * ends.numel() + 4 * N_LANES * int(min(seg_len.max(), kernels.MAX_SEGMENT_BYTES)) + 4 * lanes.numel(),
-            2 * N_LANES * nonzero,
+            n_in + 4 * ends.numel() + 64 * 32 + 32 * power_rows_read(ends_np, bucket, kernels.MAX_SEGMENT_BYTES)
+            + 4 * lanes.numel(),
+            *word_work(batch, split_words(ends_np, bucket)),
         ),
     }
     for name, (ms, plain_ms) in t.items():
@@ -557,11 +632,16 @@ def batch_step(dev, chunks, card: str):
     for seg in STEP_EXTRA_STRIDES:
         stride_errs[seg] = max_abs_err(kernels.segment_fp_fixed(batch, seg, tables), kernels.segment_fp_fixed_plain(batch, seg, tables))
         torch.cuda.empty_cache()
+    odd = batch[:, : (bucket // STEP_ODD_STRIDE // 8) * 8 * STEP_ODD_STRIDE].contiguous()
+    stride_errs[STEP_ODD_STRIDE] = max_abs_err(
+        kernels.segment_fp_fixed(odd, STEP_ODD_STRIDE, tables), kernels.segment_fp_fixed_plain(odd, STEP_ODD_STRIDE, tables))
+    del odd
+    torch.cuda.empty_cache()
     errs["segment_fp_fixed"] = max([errs["segment_fp_fixed"]] + list(stride_errs.values()))
     sync(dev)
     log(f"phase 5: max |kernel - plain| {errs} (step rows and adversarial rows: zero, constant 0x5A, "
         f"repeated 1 KiB, random; their tags zero/const/literal {adv_tags.tolist()}); "
-        f"segment_fp_fixed at strides {list(STEP_EXTRA_STRIDES)}: {stride_errs}")
+        f"segment_fp_fixed at strides {list(STEP_EXTRA_STRIDES)} and {STEP_ODD_STRIDE} (byte path): {stride_errs}")
     if any(errs.values()) or min(adv_tags) == 0:
         raise AssertionError(f"a batch-step kernel disagrees with its plain version: {errs}, tags {adv_tags.tolist()}")
 
@@ -584,16 +664,15 @@ def batch_step(dev, chunks, card: str):
     stride_ms = {seg: time_ms(lambda: kernels.segment_fp_fixed(batch, seg, tables), 20) for seg in STEP_EXTRA_STRIDES}
     step_ms = time_ms(lambda: datapath_step(batch, **step), 20)
     n_in = MAX_BATCH * bucket
-    nonzero = int((batch != 0).sum().item())
     bounds = {
         # read the bytes and the table, write one byte per byte. Per byte: the
         # hash step (one shift-add) and the top-bits test
         "gear_mask": bound_ms(n_in + 1024 + n_in, 2 * n_in),
-        # read the bytes and the power slice r^(S-1-i), write the lanes. Per
-        # nonzero byte and lane: one 32 x 32 -> 64-bit multiply-add, two
-        # 32-bit instructions
+        # read the bytes, word_limbs and the word_powers rows r^(S-64(k+1))
+        # (one per word of a segment), write the lanes. Per word with a
+        # nonzero byte: its u8 product and 18 integer instructions a lane
         "segment_fp_fixed": bound_ms(
-            n_in + 4 * N_LANES * min(STEP_FP_SEG, MAX_SEGMENT_BYTES) + 4 * lanes.numel(), 2 * N_LANES * nonzero
+            n_in + 64 * 32 + 32 * (min(STEP_FP_SEG, MAX_SEGMENT_BYTES) // 64) + 4 * lanes.numel(), *word_work(batch)
         ),
         # read the bytes; write tags, literals (the zero tail too) and n_lit.
         # Per byte: one compare with the block's first
@@ -647,6 +726,33 @@ def profile_step(batch, step: dict, card: str, reps: int = 20) -> None:
         "device time per step by name (ms): " + "; ".join(f"{name[:60]} {us / 1e3 / reps:.4f}" for name, us in top))
 
 
+def check_builds(kernels) -> None:
+    """Phase 1: registers and spills per kernel function from each library's
+    ptxas log, and the fingerprint kernels' integer mma instructions (IMMA) in
+    their SASS; a fingerprint kernel without one fails."""
+    import re
+    import shutil
+
+    for name in kernels._KERNELS:
+        lib = kernels.library_path(name)
+        log_text = lib.with_name(lib.name + ".log").read_text() if lib.with_name(lib.name + ".log").exists() else ""
+        regs = re.findall(r"Used (\d+) registers", log_text)
+        spills = re.findall(r"(\d+) bytes spill stores", log_text)
+        line = f"phase 1: {name}: registers per function {regs}, spill store bytes {spills}"
+        if name in ("segment_fp", "segment_fp_fixed"):
+            tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+            try:
+                sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120, check=True).stdout
+            except (OSError, subprocess.SubprocessError) as err:
+                line += f"; SASS not read ({err!r})"
+            else:
+                imma = len(re.findall(r"\bIMMA\.", sass))
+                line += f"; IMMA instructions in its SASS: {imma}"
+                if imma == 0:
+                    raise AssertionError(f"{name} issues no integer mma instruction")
+        log(line)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU", file=sys.stderr)
@@ -664,6 +770,7 @@ def main() -> int:
     build_s = kernels.build()
     log(f"phase 1: built {sorted(build_s)} in {time.perf_counter() - t0:.2f} s (per kernel: "
         + ", ".join(f"{k} {v:.2f}" for k, v in sorted(build_s.items())) + ")")
+    check_builds(kernels)
 
     t0 = time.perf_counter()
     chunks = make_corpus(SEED)

@@ -12,7 +12,9 @@ the per-chunk sender path (sources in ``skyplane_tpu_torch/csrc/``):
   Bound by bytes.
 - ``segment_fp`` (K-C, ``csrc/segment_fp.cu``) replaces call B (``fused_cdc.py``
   ``_fp_body`` + ``fingerprint.py`` ``segment_fingerprint_cumsum``). Bound by
-  integer work and power-table reads.
+  bytes: the lanes of each 64-byte word come from an integer tensor-core
+  product with ``DeviceTables.word_limbs`` (``csrc/lane_poly.cuh``), and
+  only words that an end or the power clamp cuts go byte by byte.
 
 Three more carry the fused batch step ``datapath_step`` (``ops/pipeline.py``):
 
@@ -23,7 +25,8 @@ Three more carry the fused batch step ``datapath_step`` (``ops/pipeline.py``):
 - ``segment_fp_fixed`` (K-D, ``csrc/segment_fp_fixed.cu``) replaces the
   Pallas fixed-stride fingerprint (``pallas_kernels.py``
   ``segment_fp_fixed_pallas``) and its XLA fall-through, for every stride
-  that divides N. Bound by integer work.
+  that divides N. Bound by bytes: strides that are a multiple of 64 take
+  the same word product as K-C; other strides go byte by byte.
 - ``blockpack_encode`` (K-E, ``csrc/blockpack_encode.cu``) replaces the XLA
   ``blockpack.py`` ``encode_device``. Bound by bytes.
 
@@ -68,9 +71,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "skyplane_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 GEAR_TILE = 8192  # bytes per K-A block: one candidate count per tile (K-B's scan unit)
-FP_TILE = 4096  # bytes per K-C block
-FP_FIXED_STEP = 4096  # columns per K-D block step (256 threads x 16 bytes)
-FP_FIXED_BLOCKS = 2048  # K-D splits segments over blocks until about this many run (132 SMs x 8 resident, twice)
+FP_TILE = 4096  # K-C's bucket unit (its blocks take 16 KiB tiles, the last one cut at the bucket)
+FP_WORD = 64  # K-D takes its word path for strides that are a multiple of this
+FP_FIXED_STEP = 256  # columns per K-D byte-path block step (256 threads x 1 byte)
+FP_FIXED_BLOCKS = 2048  # K-D's byte path splits segments over blocks until about this many run
 MAX_FIXED_SEG = 1 << 24  # the reference's u32 limb sums wrap past this segment length
 MAX_ROWS = 65535  # grid y limit
 
@@ -81,9 +85,9 @@ _LL = ctypes.c_longlong
 _KERNELS = {
     "gear_candidates": ("gear_candidates.cu", [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]),
     "compact_candidates": ("compact_candidates.cu", [_P, _P, _P, _LL, _I, _I, _I, _P]),
-    "segment_fp": ("segment_fp.cu", [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]),
+    "segment_fp": ("segment_fp.cu", [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]),
     "gear_mask": ("gear_mask.cu", [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]),
-    "segment_fp_fixed": ("segment_fp_fixed.cu", [_P, _P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _I, _I, _P]),
+    "segment_fp_fixed": ("segment_fp_fixed.cu", [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _I, _I, _P]),
     "blockpack_encode": ("blockpack_encode.cu", [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]),
 }
 
@@ -327,8 +331,9 @@ def segment_fp(batch: torch.Tensor, ends_slots: torch.Tensor, tables) -> torch.T
     acc = torch.empty((b, n_slots, N_LANES), dtype=torch.int64, device=batch.device)  # u64 scratch
     out = torch.empty((b, n_slots, N_LANES), dtype=torch.int32, device=batch.device)
     _launch(
-        "segment_fp", batch.device, batch.data_ptr(), ends_slots.data_ptr(), tables.powers_bits.data_ptr(),
-        acc.data_ptr(), out.data_ptr(), bucket, b, n_slots, MAX_SEGMENT_BYTES,
+        "segment_fp", batch.device, batch.data_ptr(), ends_slots.data_ptr(), tables.word_limbs.data_ptr(),
+        tables.word_powers.data_ptr(), tables.inverse_powers.data_ptr(), acc.data_ptr(), out.data_ptr(), bucket, b,
+        n_slots, MAX_SEGMENT_BYTES,
     )
     return out
 
@@ -401,19 +406,21 @@ def segment_fp_fixed(batch: torch.Tensor, seg: int, tables) -> torch.Tensor:
     if batch.device.type == "cpu":
         return segment_fp_fixed_plain(batch, seg, tables)
     n_seg = n // seg
-    vec = seg % 16 == 0 and n % 16 == 0 and batch.data_ptr() % 16 == 0
-    step = FP_FIXED_STEP if vec else 256
-    splits = max(1, min(-(-FP_FIXED_BLOCKS // (b * n_seg)), -(-seg // step)))
-    cols = -(-seg // splits)
-    cols = -(-cols // step) * step  # whole block steps per split
-    splits = -(-seg // cols)
-    if n_seg * splits >= 1 << 31:
-        raise ValueError(f"{n_seg} segments of {seg} bytes exceed the grid")
+    words = seg % FP_WORD == 0 and batch.data_ptr() % 16 == 0  # else the byte path
+    splits, cols = 1, seg
+    if not words:
+        splits = max(1, min(-(-FP_FIXED_BLOCKS // (b * n_seg)), -(-seg // FP_FIXED_STEP)))
+        cols = -(-seg // splits)
+        cols = -(-cols // FP_FIXED_STEP) * FP_FIXED_STEP  # whole block steps per split
+        splits = -(-seg // cols)
+        if n_seg * splits >= 1 << 31:
+            raise ValueError(f"{n_seg} segments of {seg} bytes exceed the grid")
     acc = torch.empty((b, n_seg, N_LANES), dtype=torch.int64, device=batch.device)  # u64 scratch
     out = torch.empty((b, n_seg, N_LANES), dtype=torch.int32, device=batch.device)
     _launch(
-        "segment_fp_fixed", batch.device, batch.data_ptr(), tables.powers_bits.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), n, seg, b, splits, cols, MAX_SEGMENT_BYTES, int(vec),
+        "segment_fp_fixed", batch.device, batch.data_ptr(), tables.powers_bits.data_ptr(),
+        tables.word_limbs.data_ptr(), tables.word_powers.data_ptr(), acc.data_ptr(), out.data_ptr(), n, seg, b,
+        splits, cols, MAX_SEGMENT_BYTES, int(words),
     )
     return out
 

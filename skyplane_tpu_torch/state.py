@@ -21,6 +21,7 @@ import torch
 from skyplane_tpu_torch.ops.backend import resolve_device
 from skyplane_tpu_torch.ops.fingerprint import LANE_BASES, _power_tables
 from skyplane_tpu_torch.ops.gear import GEAR_TABLE
+from skyplane_tpu_torch.ops.u32 import M31
 
 
 @dataclass(frozen=True)
@@ -29,7 +30,11 @@ class DeviceTables:
 
     ``gear``/``powers`` are int64 (the plain versions' carriers, values in
     [0, 2^32) and [0, M31)); ``gear_bits``/``powers_bits`` hold the same bits
-    as int32, the uint32 operands of the CUDA kernels.
+    as int32, the uint32 operands of the CUDA kernels. ``word_limbs``,
+    ``word_powers`` and ``inverse_powers`` are derived from the lane bases
+    and powers for the fingerprint kernels' 64-byte words (see
+    :func:`word_limbs_from_powers`, :func:`word_powers_from_powers` and
+    :func:`inverse_powers_from_bases`).
     """
 
     device: torch.device
@@ -37,6 +42,58 @@ class DeviceTables:
     powers: torch.Tensor  # [N_LANES, MAX_SEGMENT_BYTES] int64
     gear_bits: torch.Tensor  # [256] int32
     powers_bits: torch.Tensor  # [N_LANES, MAX_SEGMENT_BYTES] int32
+    word_limbs: torch.Tensor  # [WORD_BYTES, 4 * N_LANES] uint8
+    word_powers: torch.Tensor  # [WORD_BYTES, MAX_SEGMENT_BYTES // WORD_BYTES, N_LANES] int32
+    inverse_powers: torch.Tensor  # [WORD_BYTES, N_LANES] int32
+
+
+WORD_BYTES = 64  # the fingerprint kernels' word: one row of their u8 matrix product
+# the kernels' threads hold lanes 0, 2, 4, 6 or 1, 3, 5, 7 of a word
+WORD_LANE_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def word_limbs_from_powers(powers: np.ndarray) -> np.ndarray:
+    """[N_LANES, >= 64] powers -> [64, 4 * N_LANES] uint8: row k, column
+    4l + q holds byte q (bits 8q..8q+7) of r_l^(63-k).
+
+    A 64-byte word w at offset w0 then has W_l = sum_q (w @ B)[4l+q] << 8q =
+    sum_k w_k r_l^(63-k), the word's lane-l polynomial; row k is byte k of the
+    word, so B is read as the column-major operand of the kernels' product.
+    """
+    p = np.asarray(powers, dtype=np.uint32)[:, WORD_BYTES - 1 :: -1][:, :WORD_BYTES]  # [lanes, k] = r^(63-k)
+    limbs = (p[:, :, None] >> (8 * np.arange(4, dtype=np.uint32))) & 0xFF  # [lanes, k, q]
+    return np.ascontiguousarray(limbs.transpose(1, 0, 2).reshape(WORD_BYTES, 4 * p.shape[0]).astype(np.uint8))
+
+
+def word_powers_from_powers(powers: np.ndarray) -> np.ndarray:
+    """[N_LANES, MAX] powers -> [64, MAX // 64, N_LANES] uint32: entry
+    [x % 64, x // 64, i] is r_l^x for lane l = WORD_LANE_ORDER[i].
+
+    The same powers, laid out for the fingerprint kernels' 64-byte words: a
+    word's eight lanes share one 32-byte row (a thread reads its four as one
+    16-byte load), and the words of one segment, whose power indices fall by
+    64 a word, read consecutive rows. In the [N_LANES, MAX] layout each lane
+    of each word is a sector of its own.
+    """
+    p = np.asarray(powers, dtype=np.uint32)
+    lanes, n = p.shape
+    p = p[list(WORD_LANE_ORDER)].reshape(lanes, n // WORD_BYTES, WORD_BYTES)  # [i, m, x0]
+    return np.ascontiguousarray(p.transpose(2, 1, 0))
+
+
+def inverse_powers_from_bases(bases) -> np.ndarray:
+    """Lane bases -> [64, N_LANES] uint32: row d holds r_l^(-d) mod M31 for
+    lane l = WORD_LANE_ORDER[i] (M31 is prime, so r^-1 = r^(M31-2)).
+
+    A word cut by a segment end after its first m bytes adds those bytes as
+    (W - W') * r^-(64-m), where W' is the product of the word with its first m
+    bytes zeroed, so the tensor cores compute both pieces.
+    """
+    inv = [pow(int(r), M31 - 2, M31) for r in np.asarray(bases)[list(WORD_LANE_ORDER)]]
+    out = np.ones((WORD_BYTES, len(inv)), dtype=np.uint64)
+    for d in range(1, WORD_BYTES):
+        out[d] = out[d - 1] * np.array(inv, dtype=np.uint64) % M31
+    return out.astype(np.uint32)
 
 
 _tables: Dict[str, DeviceTables] = {}
@@ -57,6 +114,9 @@ def device_tables(device="cuda") -> DeviceTables:
                 powers,
                 torch.from_numpy(GEAR_TABLE.view(np.int32).copy()).to(dev),
                 torch.from_numpy(_power_tables().view(np.int32).copy()).to(dev),
+                torch.from_numpy(word_limbs_from_powers(_power_tables())).to(dev),
+                torch.from_numpy(word_powers_from_powers(_power_tables()).view(np.int32)).to(dev),
+                torch.from_numpy(inverse_powers_from_bases(LANE_BASES).view(np.int32)).to(dev),
             )
         return t
 

@@ -76,16 +76,45 @@ def test_kernels_match_plain(dev, bucket):
     assert torch.equal(lanes.cpu(), kernels.segment_fp(batch, ends, cpu_t))
 
 
-def test_segment_fp_garbage_and_clipped_positions(dev):
-    """Nonzero bytes past n (the garbage slot) and a garbage segment longer
-    than MAX_SEGMENT_BYTES, where the power index is clipped."""
-    rng = np.random.default_rng(7)
-    bucket = 1 << 19
-    data = rng.integers(0, 256, (2, bucket), dtype=np.uint8)
-    n_slots = 8
-    ends = np.full((2, n_slots), bucket, np.int32)
-    ends[0, :3] = [5000, 9000, 10000]  # then the garbage end `bucket`
-    ends[1, :1] = [0]
+def _adversarial_ends(case, rng):
+    """Rows and ends for K-C's word design: its whole, clamped, split and
+    byte-by-byte words."""
+    if case == "garbage":  # nonzero bytes past n (the garbage slot), a garbage segment past MAX_SEGMENT_BYTES
+        bucket = 1 << 19
+        data = rng.integers(0, 256, (2, bucket), dtype=np.uint8)
+        ends = np.full((2, 8), bucket, np.int32)
+        ends[0, :3] = [5000, 9000, 10000]  # then the garbage end `bucket`
+        ends[1, :1] = [0]
+    elif case == "residues":  # an end at every residue mod 64, ends 1 byte apart, at 64k - 1, 64k, 64k + 1
+        bucket = 1 << 18
+        data = rng.integers(0, 256, (2, bucket), dtype=np.uint8)
+        e = sorted({64 * (61 * k + 5) + k for k in range(64)} | {4095, 4096, 4097, 9000, 9001, 9002, 200001})
+        ends = np.full((2, 80), bucket, np.int32)
+        ends[:, : len(e)] = e
+        ends[1, len(e)] = bucket - 1
+    elif case == "all_ff":  # the largest limb sums
+        bucket = 1 << 18
+        data = np.full((2, bucket), 0xFF, np.uint8)
+        ends = np.full((2, 40), bucket, np.int32)
+        ends[0, :30] = np.sort(rng.choice(np.arange(1, bucket), 30, replace=False))
+    elif case == "segment_2_19":  # a random row with one segment of 2^19 bytes: its head clamped
+        bucket = 1 << 20
+        data = rng.integers(0, 256, (1, bucket), dtype=np.uint8)
+        ends = np.full((1, 8), bucket, np.int32)
+        ends[0, :3] = [333, 333 + (1 << 19), 334 + (1 << 19)]
+    elif case == "bucket_only":  # the bucket as the only end
+        bucket = 1 << 18
+        data = rng.integers(0, 256, (2, bucket), dtype=np.uint8)
+        ends = np.full((2, 4), bucket, np.int32)
+    return data, ends
+
+
+@pytest.mark.parametrize("case", ["garbage", "residues", "all_ff", "segment_2_19", "bucket_only"])
+def test_segment_fp_garbage_and_clipped_positions(dev, case):
+    """Garbage and clipped positions, and the adversarial rows of the word
+    design: ends at every residue mod 64 (and 1 byte apart), all 0xFF, a
+    segment of 2^19 bytes, the bucket as the only end."""
+    data, ends = _adversarial_ends(case, np.random.default_rng(7))
     cpu_t, gpu_t = device_tables("cpu"), device_tables(dev)
     batch, e = torch.from_numpy(data), torch.from_numpy(ends)
     got = kernels.segment_fp(batch.to(dev), e.to(dev), gpu_t).cpu()
@@ -155,11 +184,15 @@ def test_gear_mask_matches_plain(dev, n, mask_bits):
 
 
 @pytest.mark.parametrize(
-    "n, seg", [(1 << 18, 4096), (1 << 18, 1 << 16), (1 << 20, 1 << 17), (1 << 20, 1 << 19), (64000, 1000), (12288, 3)]
+    "n, seg",
+    [(1 << 18, 4096), (1 << 18, 1 << 16), (1 << 20, 1 << 17), (1 << 20, 1 << 19), (64000, 1000), (12288, 3),
+     (1 << 16, 64), (3 << 16, 192)],
 )
 def test_segment_fp_fixed_matches_plain(dev, n, seg):
-    """Strides inside and outside the Pallas domain, the clamp past 2^18, and
-    strides that force the kernel's byte path (not a multiple of 16)."""
+    """Strides inside and outside the Pallas domain, the clamp past 2^18,
+    strides of one and three words (the word path with a segment change
+    inside every warp pass), and strides that force the kernel's byte path
+    (not a multiple of 64)."""
     batch = torch.from_numpy(_step_rows(np.random.default_rng(seg), n, 64 if n % 512 else 512))
     got = kernels.segment_fp_fixed(batch.to(dev), seg, device_tables(dev))
     torch.cuda.synchronize()
