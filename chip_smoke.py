@@ -6,13 +6,15 @@ Phases (any failure exits non-zero before the final ``ok`` line):
 
 1. Device, torch and CUDA versions, the card's name and power limit; build
    the CUDA kernels from ``skyplane_tpu_torch/csrc`` (one nvcc per source,
-   all at once) and print the build seconds, each kernel's registers and
-   spills (ptxas), and the integer mma (IMMA) count in the SASS of the two
-   fingerprint kernels, which fails if it is 0.
+   all at once) and print the build seconds, each kernel's registers, spills
+   and shared memory (ptxas), and the integer mma (IMMA) count in the SASS
+   of the two fingerprint kernels, which fails if it is 0.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes (B = 8 rows of an 8 MiB bucket, cap 4096, 2050 slots) with
-   a zero row, a short row with its garbage end, sentinel-padded ends and an
-   overflowing cap of 16; ``segment_fp`` also on four adversarial rows (ends
+   a zero row, a short row with its garbage end and sentinel-padded ends;
+   ``gear_compact`` also at an overflowing cap of 16, at mask bits 4 (the
+   cap hit mid-chunk) and over 20 repeated launches, bit for bit, and its
+   device time traced; ``segment_fp`` also on four adversarial rows (ends
    at every residue mod 64 with ends 1 byte apart and at 64k - 1, 64k,
    64k + 1; all 0xFF bytes; a segment of 2^19 bytes, clamped; the bucket as
    the only end). Equality is exact (integer outputs). Each kernel and plain
@@ -24,8 +26,9 @@ Phases (any failure exits non-zero before the final ``ok`` line):
    before and read just after. Then: sampled wire bytes equal the host
    (numpy) path's, and every chunk restores byte-identical.
 4. One more pass of the main path under torch.profiler: the device's busy
-   share of the wall time and device time by kernel or copy. An error of
-   the data path fails this phase like any other.
+   share of the wall time, device time by kernel or copy, and the traced
+   time and launches of each kernel of the path. An error of the data path
+   fails this phase like any other.
 5. The fused batch step ``datapath_step`` (slice 2) at B = 8 x 8 MiB on the
    corpus's first 8 chunks, block 512, fingerprint stride 64 KiB, mask bits
    16, with launch counts zeroed just before and read just after. Its
@@ -74,7 +77,7 @@ STEP_FP_SEG = 1 << 16
 STEP_MASK_BITS = 16
 STEP_EXTRA_STRIDES = (4096, 1 << 17, 1 << 19, 64)
 STEP_ODD_STRIDE = 1000  # not a multiple of 64: K-D's byte path, on the first 8192000 bytes of each row
-SLICE1 = ("gear_candidates", "compact_candidates", "segment_fp")
+SLICE1 = ("gear_compact", "segment_fp")
 SLICE2 = ("gear_mask", "segment_fp_fixed", "blockpack_encode")
 
 # the card's peak rates (NVIDIA H100 SXM): HBM bytes/s from the data sheet;
@@ -193,6 +196,38 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def traced_ms(fn, name: str, reps: int) -> str:
+    """``reps`` calls of ``fn`` under torch.profiler: the device time per call
+    of the kernels whose name holds ``name`` and of the memsets beside them,
+    without the host's enqueue pace. Only the profiler's own failures read
+    "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as err:  # noqa: BLE001 — the profiler, not the port
+        return f"not measured (profiler did not start: {err!r})"
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        prof.stop()
+    try:
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as err:  # noqa: BLE001 — the profiler, not the port
+        return f"not measured (profiler events unreadable: {err!r})"
+    kern = [e.time_range.elapsed_us() for e in events if name in e.name]
+    memset = [e.time_range.elapsed_us() for e in events if "memset" in e.name.lower()]
+    if not kern:
+        return "not measured (no device events traced)"
+    return (f"{sum(kern) / 1e3 / reps:.4f} ms of kernel time per call ({len(kern)} kernels over {reps} calls), "
+            f"memset {sum(memset) / 1e3 / reps:.4f} ms per call")
+
+
 def bound_ms(n_bytes: float, n_instr: float, n_tensor_ops: float = 0.0):
     """The least time for the work: the largest of the bytes at the HBM rate,
     the integer instructions at the INT32 rate and the u8 tensor-core
@@ -290,18 +325,22 @@ def check_kernels(dev, chunks, params):
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     errs = {}
 
-    mask, counts = kernels.gear_candidates(batch, lens_t, tables, params.mask_bits)
-    pmask, pcounts = kernels.gear_candidates_plain(batch, lens_t, tables, params.mask_bits)
-    errs["gear_candidates"] = max(max_abs_err(mask, pmask), max_abs_err(counts, pcounts))
-
-    packed = kernels.compact_candidates(mask, counts, bucket, cap)
-    errs["compact_candidates"] = max_abs_err(packed, kernels.compact_candidates_plain(pmask, pcounts, bucket, cap))
-    over = kernels.compact_candidates(mask, counts, bucket, 16)  # every full row overflows a cap of 16
-    errs["compact_candidates"] = max(errs["compact_candidates"], max_abs_err(over, kernels.compact_candidates_plain(pmask, pcounts, bucket, 16)))
+    packed = kernels.gear_compact(batch, lens_t, tables, params.mask_bits, cap)
+    errs["gear_compact"] = max_abs_err(packed, kernels.gear_compact_plain(batch, lens_t, tables, params.mask_bits, cap))
+    over = kernels.gear_compact(batch, lens_t, tables, params.mask_bits, 16)  # every full row overflows a cap of 16
+    errs["gear_compact"] = max(errs["gear_compact"], max_abs_err(over, kernels.gear_compact_plain(batch, lens_t, tables, params.mask_bits, 16)))
+    dense = kernels.gear_compact(batch, lens_t, tables, 4, cap)  # mask_bits 4: the cap is hit mid-chunk
+    errs["gear_compact"] = max(errs["gear_compact"], max_abs_err(dense, kernels.gear_compact_plain(batch, lens_t, tables, 4, cap)))
+    repeats = sum(max_abs_err(kernels.gear_compact(batch, lens_t, tables, params.mask_bits, cap), packed) for _ in range(20))
+    errs["gear_compact"] = max(errs["gear_compact"], repeats)  # chunks run in another order each launch
     packed_np = packed.cpu().numpy()
     n_over = int((over.cpu().numpy()[:, 16] > 16).sum())
     if n_over < 5:
         raise AssertionError(f"a cap of 16 should overflow the full rows: {over.cpu().numpy()[:, 16].tolist()}")
+    n_dense = dense.cpu().numpy()[:, cap]
+    if (n_dense > cap).sum() < 5:
+        raise AssertionError(f"mask_bits 4 should overflow the cap on the full rows: {n_dense.tolist()}")
+    del over, dense
 
     ends = torch.from_numpy(ends_slots_for(packed_np, lens, bucket, params, cap, n_slots)).to(dev)
     n_real = int((ends.cpu().numpy() < bucket).sum())
@@ -315,43 +354,36 @@ def check_kernels(dev, chunks, params):
     torch.cuda.empty_cache()
     sync(dev)
     log(f"phase 2: B={MAX_BATCH} bucket={bucket} cap={cap} n_slots={n_slots}: "
-        f"candidates per row {packed_np[:, cap].tolist()}, rows over a cap of 16: {n_over}, real segment ends {n_real} of {MAX_BATCH * n_slots} slots, "
-        f"max |kernel - plain| {errs}; segment_fp on the adversarial rows (end residues mod 64, 0xFF, a 2^19 "
-        f"segment, the bucket as the only end): {adv_err}")
+        f"candidates per row {packed_np[:, cap].tolist()}, rows over a cap of 16: {n_over}, at mask_bits 4 {n_dense.tolist()}, "
+        f"real segment ends {n_real} of {MAX_BATCH * n_slots} slots, max |kernel - plain| {errs} (gear_compact also at a cap "
+        f"of 16, at mask_bits 4 and over 20 repeated launches); segment_fp on the adversarial rows (end residues mod 64, "
+        f"0xFF, a 2^19 segment, the bucket as the only end): {adv_err}")
     if any(errs.values()):
         raise AssertionError(f"kernel disagrees with its plain version: {errs}")
 
     # timing at the same shapes; the plain versions are the same arithmetic, no yardstick of speed
     t = {
-        "gear_candidates": (
-            time_ms(lambda: kernels.gear_candidates(batch, lens_t, tables, params.mask_bits), 50),
-            time_ms(lambda: kernels.gear_candidates_plain(batch, lens_t, tables, params.mask_bits), 3, 1),
-        ),
-        "compact_candidates": (
-            time_ms(lambda: kernels.compact_candidates(mask, counts, bucket, cap), 200),
-            time_ms(lambda: kernels.compact_candidates_plain(mask, counts, bucket, cap), 3, 1),
+        "gear_compact": (
+            time_ms(lambda: kernels.gear_compact(batch, lens_t, tables, params.mask_bits, cap), 200),
+            time_ms(lambda: kernels.gear_compact_plain(batch, lens_t, tables, params.mask_bits, cap), 3, 1),
         ),
         "segment_fp": (
             time_ms(lambda: kernels.segment_fp(batch, ends, tables), 50),
             time_ms(lambda: kernels.segment_fp_plain(batch, ends, tables), 3, 1),
         ),
     }
+    traced = traced_ms(lambda: kernels.gear_compact(batch, lens_t, tables, params.mask_bits, cap), "gear_compact", 200)
     # bounds from this run's inputs: each input read once, each output written once
     n_in = MAX_BATCH * bucket
-    cand_per_row = counts.cpu().numpy()
-    tiles_needed = 0
-    for row in cand_per_row:  # K-B reads a tile's mask words only while its offset < cap
-        offsets = np.concatenate([[0], np.cumsum(row)[:-1]])
-        tiles_needed += int((offsets < cap).sum())
     ends_np = ends.cpu().numpy()
     bounds = {
-        # read bytes + lens + table; write mask bits + tile counts. Per byte:
-        # the hash step (one shift-add), the top-bits test, the length test
-        # and the bit set
-        "gear_candidates": bound_ms(n_in + 4 * MAX_BATCH + 1024 + n_in / 8 + 4 * counts.numel(), 4 * n_in),
-        # read the tile counts and the needed mask tiles (1 KiB each); write
-        # [B, cap+1] i32. Per mask word of a needed tile: a popcount and a scan add
-        "compact_candidates": bound_ms(4 * counts.numel() + 1024 * tiles_needed + 4 * packed.numel(), 2 * 256 * tiles_needed),
+        # read bytes + lens + table; write [B, cap+1] i32 and 16 bytes of
+        # status per chunk. Per byte: the hash step (one shift-add), the
+        # top-bits test, the length test and the bit set
+        "gear_compact": bound_ms(
+            n_in + 4 * MAX_BATCH + 1024 + 4 * packed.numel() + 16 * MAX_BATCH * -(-bucket // kernels.GEAR_CHUNK),
+            4 * n_in,
+        ),
         # read bytes, ends, word_limbs and the word_powers rows the segments
         # index; write the lanes. Per word with a nonzero byte (twice for a
         # word an end cuts): its u8 product and 18 integer instructions a lane
@@ -364,6 +396,8 @@ def check_kernels(dev, chunks, params):
     for name, (ms, plain_ms) in t.items():
         b, by = bounds[name]
         log(f"  {name}: {ms:.4f} ms/launch (plain {plain_ms:.3f} ms), bound {b:.4f} ms ({by}), {b / ms:.1%} of bound")
+    read_ms = time_ms(lambda: batch.view(torch.int32).max(), 100)  # a yardstick for K-AB's reads, not its function
+    log(f"  gear_compact traced: {traced}; a PyTorch reduction reading the same {n_in} bytes (int32 max): {read_ms:.4f} ms")
     return errs, t, bounds
 
 
@@ -547,6 +581,9 @@ def profile_main_path(dev, chunks, params, card: str) -> None:
     log(f"phase 4 on {card}: profiled wall {wall:.3f} s, device busy {busy_us / 1e3:.3f} ms = "
         f"{busy_us / 1e6 / wall:.2%} of wall (idle {1 - busy_us / 1e6 / wall:.2%}); device time by name (ms): "
         + "; ".join(f"{name[:60]} {us / 1e3:.3f}" for name, us in top))
+    per_kernel = {k: [e.time_range.elapsed_us() for e in events if f"{k}_kernel" in e.name] for k in SLICE1}
+    log("phase 4: traced device time of the main path's kernels: " + "; ".join(
+        f"{k} {sum(v) / 1e3:.4f} ms over {len(v)} launches" for k, v in per_kernel.items()))
 
 
 def batch_step(dev, chunks, card: str):
@@ -738,7 +775,8 @@ def check_builds(kernels) -> None:
         log_text = lib.with_name(lib.name + ".log").read_text() if lib.with_name(lib.name + ".log").exists() else ""
         regs = re.findall(r"Used (\d+) registers", log_text)
         spills = re.findall(r"(\d+) bytes spill stores", log_text)
-        line = f"phase 1: {name}: registers per function {regs}, spill store bytes {spills}"
+        smem = re.findall(r"(\d+) bytes smem", log_text)
+        line = f"phase 1: {name}: registers per function {regs}, spill store bytes {spills}, shared memory bytes {smem}"
         if name in ("segment_fp", "segment_fp_fixed"):
             tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
             try:
@@ -788,8 +826,9 @@ def main() -> int:
     bounds.update(step_bounds)
 
     replaces = {
-        "gear_candidates": ("skyplane_tpu_torch/csrc/gear_candidates.cu", "skyplane_tpu/ops/pallas_kernels.py:48"),
-        "compact_candidates": ("skyplane_tpu_torch/csrc/compact_candidates.cu", "skyplane_tpu/ops/fused_cdc.py:90"),
+        # the Pallas gear windowed sum, with the XLA compaction of _candidates_impl
+        # (skyplane_tpu/ops/fused_cdc.py:91) fused into the same kernel
+        "gear_compact": ("skyplane_tpu_torch/csrc/gear_compact.cu", "skyplane_tpu/ops/pallas_kernels.py:48"),
         "segment_fp": ("skyplane_tpu_torch/csrc/segment_fp.cu", "skyplane_tpu/ops/fused_cdc.py:108"),
         "gear_mask": ("skyplane_tpu_torch/csrc/gear_mask.cu", "skyplane_tpu/ops/pallas_kernels.py:48"),
         "segment_fp_fixed": ("skyplane_tpu_torch/csrc/segment_fp_fixed.cu", "skyplane_tpu/ops/pallas_kernels.py:139"),

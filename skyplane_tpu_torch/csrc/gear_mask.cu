@@ -1,18 +1,17 @@
 // K-A' gear_mask: Gear rolling hash + the full-width boundary-candidate mask,
 // one byte (0 or 1) per input byte, over a [B, n] uint8 batch.
 //
-// The byte-mask mode of K-A (csrc/gear_candidates.cu) for datapath_step,
-// which returns the whole [B, N] bool mask rather than compacted candidates.
-// Replaces the same Pallas kernel as K-A, skyplane_tpu/ops/pallas_kernels.py
-// (_windowed_sum_kernel / gear_windowed_sum_pallas), with the GEAR_TABLE
-// gather (ops/gear.py gear_hash) and the top-bits test (ops/gear.py
-// boundary_candidate_mask) around it in ops/pipeline.py _datapath_step_impl.
-// It is a kernel of its own so that K-A's source, and the packed mode the
-// gateway path runs, stay exactly as they were.
+// The byte-mask form of the gear hash for datapath_step, which returns the
+// whole [B, N] bool mask rather than compacted candidates (the gateway
+// path's call A is K-AB, csrc/gear_compact.cu). Replaces the Pallas kernel
+// skyplane_tpu/ops/pallas_kernels.py (_windowed_sum_kernel /
+// gear_windowed_sum_pallas), with the GEAR_TABLE gather (ops/gear.py
+// gear_hash) and the top-bits test (ops/gear.py boundary_candidate_mask)
+// around it in ops/pipeline.py _datapath_step_impl.
 //
 // What bounds it on the H100: bytes. It reads each input byte once (plus the
 // 32-byte halo in front of each thread's word, mostly from L1) and writes one
-// byte per input byte. As in K-A, each thread owns one 32-byte word and runs
+// byte per input byte. Each thread owns one 32-byte word and runs
 // h = (h << 1) + G[b] over the 32 bytes in front of it and then over its own
 // 32 bytes, all in registers; the shift drops bits past 31, so this is the
 // 32-tap windowed sum exactly. The 32 mask bits are spread to 32 bytes and

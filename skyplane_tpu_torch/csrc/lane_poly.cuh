@@ -39,6 +39,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "resident.cuh"
 #include "u32.cuh"
 
 namespace lane_poly {
@@ -261,26 +262,5 @@ struct Run {
     for (int j = 0; j < 4; ++j) v[j] = 0;
   }
 };
-
-// Host: the blocks of `kernel` the whole card holds at once (SMs x resident
-// blocks per SM at `threads` a block), queried once per device and kept, so
-// a launch pays no query.
-template <typename Kernel>
-inline cudaError_t resident_blocks(Kernel kernel, int threads, int device, long long* out) {
-  static long long cached[64] = {};
-  const bool keep = device >= 0 && device < 64;
-  if (keep && cached[device] > 0) {
-    *out = cached[device];
-    return cudaSuccess;
-  }
-  int sms = 0, per_sm = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  if (err != cudaSuccess) return err;
-  *out = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (keep) cached[device] = *out;
-  return cudaSuccess;
-}
 
 }  // namespace lane_poly

@@ -4,8 +4,8 @@ Two device calls per batch of padded same-bucket rows, as in the JAX
 package (greedy min/max boundary selection between them is sequential and
 runs on the host):
 
-  call A:  K-A gear_candidates (gear hash + candidate mask + tile counts)
-           -> K-B compact_candidates -> packed [B, cap+1] int32, read back
+  call A:  K-AB gear_compact (gear hash, candidate test and ordered
+           compaction in one pass) -> packed [B, cap+1] int32, read back
            (blocking, a few KiB)
   host:    select_boundaries over the sparse candidate positions
   call B:  K-C segment_fp over the uploaded [B, n_slots] end offsets
@@ -59,8 +59,7 @@ def slots_cap(bucket: int, params: CDCParams) -> int:
 def _candidates_impl(batch: torch.Tensor, lens: torch.Tensor, tables: DeviceTables, *, mask_bits: int, cap: int):
     """Call A: [B, bucket] uint8 + lens [B] int32 -> [B, cap+1] int32: the first
     ``cap`` candidate positions (ascending, sentinel-padded) and the true count."""
-    mask, counts = kernels.gear_candidates(batch, lens, tables, mask_bits)
-    return kernels.compact_candidates(mask, counts, batch.shape[1], cap)
+    return kernels.gear_compact(batch, lens, tables, mask_bits, cap)
 
 
 def _fp_impl(batch: torch.Tensor, ends_slots: torch.Tensor, tables: DeviceTables) -> torch.Tensor:

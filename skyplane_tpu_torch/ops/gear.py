@@ -8,7 +8,8 @@ hash after byte t depends only on the last 32 bytes:
 Boundary candidates are positions where the top ``mask_bits`` of ``h_t`` are
 zero. ``gear_hash`` here is the plain PyTorch version (int64 carriers masked
 to 32 bits: torch on the CPU has no uint32 ``+`` or shifts); the kernel that
-runs on the card is ``gear_candidates`` in ``ops/kernels.py``.
+runs on the card is ``gear_compact`` in ``ops/kernels.py`` (``gear_mask`` in
+the batch step).
 """
 
 from __future__ import annotations

@@ -1,15 +1,18 @@
 """The hand-written CUDA kernels of the sender data path, their plain
 PyTorch versions, their launch counts, and the build and loader.
 
-Counterpart of ``skyplane_tpu/ops/pallas_kernels.py``. Three kernels carry
+Counterpart of ``skyplane_tpu/ops/pallas_kernels.py``. Two kernels carry
 the per-chunk sender path (sources in ``skyplane_tpu_torch/csrc/``):
 
-- ``gear_candidates`` (K-A, ``csrc/gear_candidates.cu``) replaces the Pallas
-  gear windowed sum (``pallas_kernels.py`` ``gear_windowed_sum_pallas``) with
-  the table gather and the candidate mask of call A. Bound by bytes.
-- ``compact_candidates`` (K-B, ``csrc/compact_candidates.cu``) replaces the
-  XLA compaction half of call A (``fused_cdc.py`` ``_candidates_impl``).
-  Bound by bytes.
+- ``gear_compact`` (K-AB, ``csrc/gear_compact.cu``) is all of call A in one
+  pass: it replaces the Pallas gear windowed sum (``pallas_kernels.py``
+  ``gear_windowed_sum_pallas``) with the table gather and the candidate
+  mask around it, and the XLA compaction (``fused_cdc.py``
+  ``_candidates_impl``). Bound by bytes: one conflict-free table read per
+  byte, and the ordered compaction by a decoupled look-back in the same
+  pass, so neither the mask nor the tile counts reach device memory. Its
+  plain version is the two halves K-A and K-B, ``gear_candidates_plain``
+  then ``compact_candidates_plain``.
 - ``segment_fp`` (K-C, ``csrc/segment_fp.cu``) replaces call B (``fused_cdc.py``
   ``_fp_body`` + ``fingerprint.py`` ``segment_fingerprint_cumsum``). Bound by
   bytes: the lanes of each 64-byte word come from an integer tensor-core
@@ -18,10 +21,8 @@ the per-chunk sender path (sources in ``skyplane_tpu_torch/csrc/``):
 
 Three more carry the fused batch step ``datapath_step`` (``ops/pipeline.py``):
 
-- ``gear_mask`` (K-A', ``csrc/gear_mask.cu``) is K-A's byte-mask mode: the
-  same hash, and the whole [B, N] candidate mask, one byte per position. A
-  kernel of its own, so K-A's source and the gateway path's build stay as
-  they were. Bound by bytes.
+- ``gear_mask`` (K-A', ``csrc/gear_mask.cu``): the same hash, and the whole
+  [B, N] candidate mask, one byte per position. Bound by bytes.
 - ``segment_fp_fixed`` (K-D, ``csrc/segment_fp_fixed.cu``) replaces the
   Pallas fixed-stride fingerprint (``pallas_kernels.py``
   ``segment_fp_fixed_pallas``) and its XLA fall-through, for every stride
@@ -70,7 +71,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "skyplane_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-GEAR_TILE = 8192  # bytes per K-A block: one candidate count per tile (K-B's scan unit)
+GEAR_TILE = 8192  # bytes per K-AB sub-tile and per K-A' block: rows are a multiple of it
+GEAR_CHUNK = 1 << 18  # bytes per K-AB chunk (its ticket and look-back unit, one status word each)
 FP_TILE = 4096  # K-C's bucket unit (its blocks take 16 KiB tiles, the last one cut at the bucket)
 FP_WORD = 64  # K-D takes its word path for strides that are a multiple of this
 FP_FIXED_STEP = 256  # columns per K-D byte-path block step (256 threads x 1 byte)
@@ -83,8 +85,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # name -> (source, C argument types after the name's pointers)
 _KERNELS = {
-    "gear_candidates": ("gear_candidates.cu", [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]),
-    "compact_candidates": ("compact_candidates.cu", [_P, _P, _P, _LL, _I, _I, _I, _P]),
+    "gear_compact": ("gear_compact.cu", [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]),
     "segment_fp": ("segment_fp.cu", [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]),
     "gear_mask": ("gear_mask.cu", [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]),
     "segment_fp_fixed": ("segment_fp_fixed.cu", [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _I, _I, _P]),
@@ -219,11 +220,17 @@ def _check_operand(t: torch.Tensor, shape, dtype, device, what: str) -> None:
         )
 
 
-# ---- K-A: gear hash + candidate mask + per-tile counts ----
+# ---- K-AB: call A in one pass (gear hash, candidate test, ordered compaction) ----
 
 
 def gear_candidates_plain(batch: torch.Tensor, lens: torch.Tensor, tables, mask_bits: int):
-    """Plain version of K-A: the same function in PyTorch (int64 carriers)."""
+    """The first half of K-AB's plain version: [B, bucket] uint8 + lens [B]
+    int32 -> (mask [B, bucket/32] int32, counts [B, bucket/GEAR_TILE] int32).
+
+    Bit k of mask word w is set where position p = 32w + k is a boundary
+    candidate (top ``mask_bits`` of the gear hash zero) and p < lens[row];
+    counts[row, t] is the number of candidates in tile t (GEAR_TILE bytes).
+    """
     b, bucket = batch.shape
     h = gear_hash(batch, tables.gear)
     iota = torch.arange(bucket, device=batch.device)
@@ -234,33 +241,9 @@ def gear_candidates_plain(batch: torch.Tensor, lens: torch.Tensor, tables, mask_
     return words.to(torch.int32), counts
 
 
-def gear_candidates(batch: torch.Tensor, lens: torch.Tensor, tables, mask_bits: int):
-    """[B, bucket] uint8 + lens [B] int32 -> (mask [B, bucket/32] int32, counts [B, bucket/GEAR_TILE] int32).
-
-    Bit k of mask word w is set where position p = 32w + k is a boundary
-    candidate (top ``mask_bits`` of the gear hash zero) and p < lens[row];
-    counts[row, t] is the number of candidates in tile t (GEAR_TILE bytes).
-    """
-    b, bucket = _check_batch(batch)
-    if not 1 <= mask_bits <= 31:
-        raise ValueError(f"mask_bits {mask_bits} outside [1, 31]")
-    _check_operand(lens, (b,), torch.int32, batch.device, "lens")
-    if batch.device.type == "cpu":
-        return gear_candidates_plain(batch, lens, tables, mask_bits)
-    mask = torch.empty((b, bucket // 32), dtype=torch.int32, device=batch.device)
-    counts = torch.empty((b, bucket // GEAR_TILE), dtype=torch.int32, device=batch.device)
-    _launch(
-        "gear_candidates", batch.device, batch.data_ptr(), lens.data_ptr(), tables.gear_bits.data_ptr(),
-        mask.data_ptr(), counts.data_ptr(), bucket, b, mask_bits,
-    )
-    return mask, counts
-
-
-# ---- K-B: ordered compaction ----
-
-
-def compact_candidates_plain(mask: torch.Tensor, counts: torch.Tensor, bucket: int, cap: int) -> torch.Tensor:
-    """Plain version of K-B (the scatter form of ``_candidates_impl``)."""
+def compact_candidates_plain(mask: torch.Tensor, bucket: int, cap: int) -> torch.Tensor:
+    """The second half of K-AB's plain version: the mask words -> packed
+    [B, cap+1] int32 (the scatter form of ``_candidates_impl``)."""
     b, w = mask.shape
     shifts = torch.arange(32, device=mask.device)
     valid = (((mask.long() & 0xFFFFFFFF)[:, :, None] >> shifts) & 1).bool().view(b, w * 32)
@@ -273,19 +256,32 @@ def compact_candidates_plain(mask: torch.Tensor, counts: torch.Tensor, bucket: i
     return out.to(torch.int32)
 
 
-def compact_candidates(mask: torch.Tensor, counts: torch.Tensor, bucket: int, cap: int) -> torch.Tensor:
-    """K-A's mask and counts -> packed [B, cap+1] int32: the first ``cap``
-    candidate positions ascending, padded with ``bucket``, and the true
-    candidate count (even past ``cap``) in column ``cap``."""
-    b = mask.shape[0]
-    if not 1 <= b <= MAX_ROWS or bucket % GEAR_TILE or not 0 < bucket < (1 << 31) or cap < 1:
-        raise ValueError(f"bad compaction shape: rows {b}, bucket {bucket}, cap {cap}")
-    _check_operand(mask, (b, bucket // 32), torch.int32, mask.device, "mask")
-    _check_operand(counts, (b, bucket // GEAR_TILE), torch.int32, mask.device, "counts")
-    if mask.device.type == "cpu":
-        return compact_candidates_plain(mask, counts, bucket, cap)
-    out = torch.empty((b, cap + 1), dtype=torch.int32, device=mask.device)
-    _launch("compact_candidates", mask.device, mask.data_ptr(), counts.data_ptr(), out.data_ptr(), bucket, b, cap)
+def gear_compact_plain(batch: torch.Tensor, lens: torch.Tensor, tables, mask_bits: int, cap: int) -> torch.Tensor:
+    """Plain version of K-AB: the candidate mask, then its ordered compaction."""
+    mask, _ = gear_candidates_plain(batch, lens, tables, mask_bits)
+    return compact_candidates_plain(mask, batch.shape[1], cap)
+
+
+def gear_compact(batch: torch.Tensor, lens: torch.Tensor, tables, mask_bits: int, cap: int) -> torch.Tensor:
+    """[B, bucket] uint8 + lens [B] int32 -> packed [B, cap+1] int32: the first
+    ``cap`` boundary candidates of each row (positions p < lens[row] where
+    the top ``mask_bits`` of the gear hash are zero) in ascending order,
+    padded with ``bucket``, and the true candidate count (even past ``cap``)
+    in column ``cap``."""
+    b, bucket = _check_batch(batch)
+    if not 1 <= mask_bits <= 31:
+        raise ValueError(f"mask_bits {mask_bits} outside [1, 31]")
+    if not 1 <= cap < (1 << 31) - 1:
+        raise ValueError(f"cap {cap} outside [1, 2^31 - 1)")
+    _check_operand(lens, (b,), torch.int32, batch.device, "lens")
+    if batch.device.type == "cpu":
+        return gear_compact_plain(batch, lens, tables, mask_bits, cap)
+    out = torch.empty((b, cap + 1), dtype=torch.int32, device=batch.device)
+    scratch = torch.empty((1 + b * -(-bucket // GEAR_CHUNK),), dtype=torch.int64, device=batch.device)  # ticket, status
+    _launch(
+        "gear_compact", batch.device, batch.data_ptr(), lens.data_ptr(), tables.gear_bits.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), bucket, b, mask_bits, cap,
+    )
     return out
 
 

@@ -62,18 +62,68 @@ def test_kernels_match_plain(dev, bucket):
     cpu_t, gpu_t = device_tables("cpu"), device_tables(dev)
     batch = torch.from_numpy(data)
     lens_t = torch.tensor(lens, dtype=torch.int32)
-    mask, counts = kernels.gear_candidates(batch.to(dev), lens_t.to(dev), gpu_t, PARAMS.mask_bits)
-    pmask, pcounts = kernels.gear_candidates(batch, lens_t, cpu_t, PARAMS.mask_bits)
-    torch.cuda.synchronize()
-    assert torch.equal(mask.cpu(), pmask) and torch.equal(counts.cpu(), pcounts)
     for cap in (16, candidate_cap(bucket, PARAMS)):  # 16: overflow rows keep the true count
-        packed = kernels.compact_candidates(mask, counts, bucket, cap)
-        assert torch.equal(packed.cpu(), kernels.compact_candidates(pmask, pcounts, bucket, cap))
+        packed = kernels.gear_compact(batch.to(dev), lens_t.to(dev), gpu_t, PARAMS.mask_bits, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(packed.cpu(), kernels.gear_compact(batch, lens_t, cpu_t, PARAMS.mask_bits, cap))
     cap = candidate_cap(bucket, PARAMS)
-    packed = kernels.compact_candidates(pmask, pcounts, bucket, cap).numpy()
+    packed = kernels.gear_compact(batch, lens_t, cpu_t, PARAMS.mask_bits, cap).numpy()
     ends = torch.from_numpy(_ends_slots(packed, lens, bucket, PARAMS, cap))
     lanes = kernels.segment_fp(batch.to(dev), ends.to(dev), gpu_t)
     assert torch.equal(lanes.cpu(), kernels.segment_fp(batch, ends, cpu_t))
+
+
+def _gear_compact_plain_rows(batch, lens, tables, mask_bits, caps, step=8):
+    """The plain version, 8 rows at a time (its int64 hashes of 64 rows of
+    8 MiB would take tens of GB), for every cap from one mask."""
+    outs = {cap: [] for cap in caps}
+    for i in range(0, batch.shape[0], step):
+        mask, _ = kernels.gear_candidates_plain(batch[i : i + step], lens[i : i + step], tables, mask_bits)
+        for cap in caps:
+            outs[cap].append(kernels.compact_candidates_plain(mask, batch.shape[1], cap))
+        del mask
+    return {cap: torch.cat(v) for cap, v in outs.items()}
+
+
+@pytest.mark.parametrize("rows", [1, 8, 64])
+@pytest.mark.parametrize("bucket", [1 << 16, 1 << 18, 1 << 23])
+def test_gear_compact_matches_plain(dev, bucket, rows):
+    """K-AB against its plain version: mask_bits 4 (dense: the cap is hit
+    mid-tile), 8 and 14; caps 16, the first row's exact count and the
+    gateway's default; rows cut short, empty, and with a zero extent."""
+    rng = np.random.default_rng(bucket + rows)
+    lens = rng.integers(0, bucket + 1, rows).astype(np.int32)
+    lens[0] = bucket
+    lens[rows // 2] = 0
+    data = torch.from_numpy(rng.integers(0, 256, (rows, bucket), dtype=np.uint8)).to(dev)
+    data[-1, 1000:9000] = 0
+    lens_t = torch.from_numpy(lens).to(dev)
+    tables = device_tables(dev)
+    for mask_bits in (4, 8, 14):
+        count = int(kernels.gear_compact(data[:1], lens_t[:1], tables, mask_bits, 1)[0, 1])
+        caps = sorted({16, max(1, count), candidate_cap(bucket, CDCParams())})
+        want = _gear_compact_plain_rows(data, lens_t, tables, mask_bits, caps)
+        for cap in caps:
+            got = kernels.gear_compact(data, lens_t, tables, mask_bits, cap)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want[cap]), (mask_bits, cap)
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("mask_bits", [4, 14])
+def test_gear_compact_repeats_bit_equal(dev, mask_bits):
+    """The same launch 20 times gives bit-equal outputs: tiles run in a
+    different order each time, so a race in the look-back would show."""
+    rng = np.random.default_rng(mask_bits)
+    bucket = 1 << 23
+    data = torch.from_numpy(rng.integers(0, 256, (8, bucket), dtype=np.uint8)).to(dev)
+    lens = torch.full((8,), bucket, dtype=torch.int32, device=dev)
+    tables = device_tables(dev)
+    cap = candidate_cap(bucket, CDCParams())
+    first = kernels.gear_compact(data, lens, tables, mask_bits, cap)
+    for _ in range(20):
+        assert torch.equal(kernels.gear_compact(data, lens, tables, mask_bits, cap), first)
+    assert torch.equal(first, _gear_compact_plain_rows(data, lens, tables, mask_bits, [cap])[cap])
 
 
 def _adversarial_ends(case, rng):
@@ -128,7 +178,7 @@ def test_kernel_launches_counted(dev):
     chunk = rng.integers(0, 256, 1 << 16, dtype=np.uint8)
     (ends, fps), = fused(chunk[None, :], [len(chunk)])
     want = {name: 0 for name in kernels.launch_counts()}
-    want.update(gear_candidates=1, compact_candidates=1, segment_fp=1)
+    want.update(gear_compact=1, segment_fp=1)
     assert kernels.launch_counts() == want
     want_ends, want_fps = cdc_and_fps_host(chunk, PARAMS)
     np.testing.assert_array_equal(ends, want_ends)

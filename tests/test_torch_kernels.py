@@ -80,7 +80,7 @@ def test_u32_helpers_match_reference():
         np.testing.assert_array_equal(tu32.powmod31_table(base, 1000), ju32.powmod31_table(base, 1000))
 
 
-# ---- P1 / K-A: the gear hash and the candidate mask ----
+# ---- P1: the gear hash, and the candidate mask of K-AB's plain version ----
 
 
 def test_gear_hash_matches_pallas_interpret_and_sequential():
@@ -100,7 +100,7 @@ def test_gear_candidates_plain_mask_and_counts():
     bucket = 1 << 16
     data = rng.integers(0, 256, (3, bucket), dtype=np.uint8)
     lens = np.array([bucket, 40000, 0], np.int32)
-    mask, counts = kernels.gear_candidates(torch.from_numpy(data), torch.from_numpy(lens), TABLES, 8)
+    mask, counts = kernels.gear_candidates_plain(torch.from_numpy(data), torch.from_numpy(lens), TABLES, 8)
     for i in range(3):
         h = np.asarray(jgear.gear_hash(jnp.asarray(data[i]), pallas=False))
         want = np.asarray(jgear.boundary_candidate_mask(jnp.asarray(h), 8)) & (np.arange(bucket) < lens[i])
@@ -109,7 +109,7 @@ def test_gear_candidates_plain_mask_and_counts():
         np.testing.assert_array_equal(counts[i].numpy(), want.reshape(-1, kernels.GEAR_TILE).sum(1))
 
 
-# ---- call A (K-A + K-B) ----
+# ---- call A (K-AB) ----
 
 
 def _call_a(batch, lens, cap, mask_bits=PARAMS.mask_bits):
@@ -151,9 +151,8 @@ def test_compact_candidates_plain_orders_positions():
     bucket = 1 << 16
     valid = rng.random((2, bucket)) < 0.002
     words = np.packbits(valid, axis=1, bitorder="little").view(np.int32)
-    counts = valid.reshape(2, -1, kernels.GEAR_TILE).sum(-1).astype(np.int32)
     for cap in (8, 400):
-        out = kernels.compact_candidates(torch.from_numpy(words.copy()), torch.from_numpy(counts), bucket, cap).numpy()
+        out = kernels.compact_candidates_plain(torch.from_numpy(words.copy()), bucket, cap).numpy()
         for i in range(2):
             pos = np.flatnonzero(valid[i])
             want = np.full(cap, bucket)

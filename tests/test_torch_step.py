@@ -182,11 +182,11 @@ def test_gear_mask_matches_packed_mode_and_reference(n, mask_bits):
     for i, row in enumerate(data):
         want = np.asarray(boundary_candidate_mask(gear_hash(jnp.asarray(row), pallas=False), mask_bits))
         np.testing.assert_array_equal(got[i].numpy(), want)
-    # K-A's packed mode over the same bytes (padded to its tile), unpacked
+    # the packed mask of K-AB's plain version over the same bytes (padded to its tile), unpacked
     n_pad = -(-n // kernels.GEAR_TILE) * kernels.GEAR_TILE
     padded = torch.zeros((3, n_pad), dtype=torch.uint8)
     padded[:, :n] = batch
-    words, counts = kernels.gear_candidates(padded, torch.full((3,), n, dtype=torch.int32), TABLES, mask_bits)
+    words, counts = kernels.gear_candidates_plain(padded, torch.full((3,), n, dtype=torch.int32), TABLES, mask_bits)
     bits = ((words.long()[:, :, None] >> torch.arange(32)) & 1).bool().view(3, n_pad)
     assert torch.equal(bits[:, :n], got)
     assert torch.equal(counts.sum(-1), got.sum(-1).to(torch.int32))
