@@ -39,9 +39,14 @@ Phases (any failure exits non-zero before the final ``ok`` line):
    exactly on those rows and on adversarial ones (all-zero, constant, a
    repeated 1 KiB pattern, random), ``segment_fp_fixed`` also at strides
    4096, 2^17, 2^19 (past the power table: clamped) and 64, and at 1000 (its
-   byte path) on the rows cut to 8192000 bytes. Kernel, plain and
-   whole-step times with CUDA events, beside each kernel's bound; then 20
-   steps under torch.profiler: the device's busy share of their wall time.
+   byte path) on the rows cut to 8192000 bytes, ``blockpack_encode`` also at
+   blocks 1, 4, 16, 600, 4096 and 40960 (larger than its tile) on the rows
+   cut to a multiple of the block, and on the batch at storage offset 1.
+   Kernel, plain and whole-step times with CUDA events, beside each
+   kernel's bound; ``blockpack_encode`` also by traced device time, beside
+   a device-to-device copy of the same bytes, and at the other blocks; then
+   20 steps under torch.profiler: the device's busy share of their wall
+   time.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 line describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -77,6 +82,10 @@ STEP_FP_SEG = 1 << 16
 STEP_MASK_BITS = 16
 STEP_EXTRA_STRIDES = (4096, 1 << 17, 1 << 19, 64)
 STEP_ODD_STRIDE = 1000  # not a multiple of 64: K-D's byte path, on the first 8192000 bytes of each row
+# K-E's other block sizes, each on the step rows cut to a multiple of it: one
+# byte, small blocks (a thread per run of blocks), a block that is not a power
+# of two, and one larger than a tile (streamed twice)
+STEP_EXTRA_BLOCKS = (1, 4, 16, 600, 4096, 40960)
 SLICE1 = ("gear_compact", "segment_fp")
 SLICE2 = ("gear_mask", "segment_fp_fixed", "blockpack_encode")
 
@@ -665,6 +674,21 @@ def batch_step(dev, chunks, card: str):
         errs["blockpack_encode"] = max([errs["blockpack_encode"]] + [max_abs_err(g, w) for g, w in zip(got, want)])
         torch.cuda.empty_cache()
     adv_tags = np.bincount(kernels.blockpack_encode(adv_batch, STEP_BLOCK)[0].cpu().numpy().reshape(-1), minlength=3)
+    block_errs = {}
+    for bb in STEP_EXTRA_BLOCKS:
+        cut = batch[:, : bucket // bb * bb].contiguous()
+        got, want = kernels.blockpack_encode(cut, bb), kernels.blockpack_encode_plain(cut, bb)
+        block_errs[bb] = max(max_abs_err(g, w) for g, w in zip(got, want))
+        del cut, got, want
+        torch.cuda.empty_cache()
+    flat = torch.empty(batch.numel() + 1, dtype=torch.uint8, device=dev)
+    shifted = flat[1:].view(batch.shape)  # a contiguous batch at storage offset 1: no bulk copies
+    shifted.copy_(batch)
+    got, want = kernels.blockpack_encode(shifted, STEP_BLOCK), kernels.blockpack_encode_plain(batch, STEP_BLOCK)
+    block_errs["unaligned"] = max(max_abs_err(g, w) for g, w in zip(got, want))
+    del flat, shifted, got, want
+    torch.cuda.empty_cache()
+    errs["blockpack_encode"] = max([errs["blockpack_encode"]] + list(block_errs.values()))
     stride_errs = {}
     for seg in STEP_EXTRA_STRIDES:
         stride_errs[seg] = max_abs_err(kernels.segment_fp_fixed(batch, seg, tables), kernels.segment_fp_fixed_plain(batch, seg, tables))
@@ -678,7 +702,8 @@ def batch_step(dev, chunks, card: str):
     sync(dev)
     log(f"phase 5: max |kernel - plain| {errs} (step rows and adversarial rows: zero, constant 0x5A, "
         f"repeated 1 KiB, random; their tags zero/const/literal {adv_tags.tolist()}); "
-        f"segment_fp_fixed at strides {list(STEP_EXTRA_STRIDES)} and {STEP_ODD_STRIDE} (byte path): {stride_errs}")
+        f"segment_fp_fixed at strides {list(STEP_EXTRA_STRIDES)} and {STEP_ODD_STRIDE} (byte path): {stride_errs}; "
+        f"blockpack_encode at blocks {list(STEP_EXTRA_BLOCKS)} and on a batch at storage offset 1: {block_errs}")
     if any(errs.values()) or min(adv_tags) == 0:
         raise AssertionError(f"a batch-step kernel disagrees with its plain version: {errs}, tags {adv_tags.tolist()}")
 
@@ -699,6 +724,16 @@ def batch_step(dev, chunks, card: str):
     }
     torch.cuda.empty_cache()
     stride_ms = {seg: time_ms(lambda: kernels.segment_fp_fixed(batch, seg, tables), 20) for seg in STEP_EXTRA_STRIDES}
+    encode_traced = traced_ms(lambda: kernels.blockpack_encode(batch, STEP_BLOCK), "blockpack_encode", 50)
+    copy_out = torch.empty_like(batch)
+    copy_ms = time_ms(lambda: copy_out.copy_(batch), 50)  # a yardstick: one read and one write of the batch
+    del copy_out
+    block_ms = {}
+    for bb in STEP_EXTRA_BLOCKS:
+        cut = batch[:, : bucket // bb * bb].contiguous()
+        block_ms[bb] = time_ms(lambda: kernels.blockpack_encode(cut, bb), 20)
+        del cut
+    torch.cuda.empty_cache()
     step_ms = time_ms(lambda: datapath_step(batch, **step), 20)
     n_in = MAX_BATCH * bucket
     bounds = {
@@ -719,6 +754,10 @@ def batch_step(dev, chunks, card: str):
         b, by = bounds[name]
         log(f"  {name}: {ms:.4f} ms/launch (plain {plain_ms:.3f} ms), bound {b:.4f} ms ({by}), {b / ms:.1%} of bound")
     log("  segment_fp_fixed at other strides: " + ", ".join(f"S={seg} {ms:.4f} ms" for seg, ms in stride_ms.items()))
+    log(f"  blockpack_encode traced: {encode_traced}; a device-to-device copy of the same {n_in} bytes "
+        f"(torch.Tensor.copy_, the byte floor of one read and one write): {copy_ms:.4f} ms; on {card}")
+    log("  blockpack_encode at other blocks (rows cut to a multiple): "
+        + ", ".join(f"bb={bb} {ms:.4f} ms" for bb, ms in block_ms.items()))
     log(f"phase 5 on {card}: datapath_step {step_ms:.4f} ms per call at B={MAX_BATCH} x {bucket} "
         f"= {n_in / step_ms / 1e6:.2f} GB/s of input")
     profile_step(batch, step, card)

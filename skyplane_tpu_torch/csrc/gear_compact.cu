@@ -43,9 +43,9 @@
 //   chunk's offset in its row by a decoupled look-back (Merrill & Garland,
 //   "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016): it
 //   publishes its count as an aggregate in a 64-bit status word (flag and
-//   value in one word; a release store), and warp 0 reads the 128 chunks in
-//   front of it at once (four a lane, relaxed loads, then an acquire fence),
-//   summing aggregates back to the nearest inclusive prefix; then it
+//   value in one word, relaxed: lookback.cuh), and warp 0 reads the 128
+//   chunks in front of it at once (four a lane), summing aggregates back to
+//   the nearest inclusive prefix; then it
 //   publishes its own. Chunk 0 of a row publishes its inclusive prefix at
 //   once. Each warp writes its positions at offset + its prefix while below
 //   cap (a span whose first slot is past cap writes none); the row's last
@@ -54,6 +54,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
 #include "resident.cuh"
 
 namespace {
@@ -63,27 +64,13 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileBytes = kThreads * 32;  // 8 KiB per sub-tile
 constexpr int kSub = 32;
 constexpr int kChunkBytes = kSub * kTileBytes;  // 256 KiB (ops/kernels.py GEAR_CHUNK)
-constexpr int kLookback = 4;                    // status words a lane reads per look-back round
 constexpr int kTableBytes = 256 * 256;
 constexpr int kSmemBytes = kTableBytes + kSub * kThreads * 4;  // the table, then the chunk's candidate bits
 constexpr int kCounts = kSub * kWarps;
 constexpr int kPerLane = kCounts / 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-// a chunk's status word: flag in bits 32-33, candidate count in bits 0-31
-constexpr unsigned long long kAggregate = 1ull << 32;  // this chunk's count
-constexpr unsigned long long kInclusive = 2ull << 32;  // the row's count up to and including this chunk
+// a chunk's status word (lookback.cuh): flag in bits 32-33, candidate count in bits 0-31
 static_assert(kCounts % 32 == 0, "warp 0 scans whole lanes of counts");
-
-__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-// a spin read: relaxed (an acquire load would invalidate the SM's L1 on every try)
-__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
 
 // G[byte k of w] from this lane's bank; lane4 = lane * 4
 __device__ __forceinline__ uint32_t gear(const unsigned char* table, uint32_t w, int k, uint32_t lane4) {
@@ -154,38 +141,6 @@ __device__ __forceinline__ uint32_t word_bits(const Word& x, const unsigned char
   return bits;
 }
 
-// warp 0: chunk `index`'s exclusive offset in its row, from the status words
-// of the chunks in front of it (index > 0); publishes its inclusive prefix
-__device__ long long look_back(unsigned long long* row_status, long long index, unsigned agg, int lane) {
-  long long excl = 0;
-  for (long long base = index - 1;; base -= 32 * kLookback) {
-    unsigned long long s[kLookback];
-#pragma unroll
-    for (int i = 0; i < kLookback; ++i) {  // before the row: an inclusive 0, past chunk 0's own
-      const long long idx = base - lane * kLookback - i;
-      s[i] = idx >= 0 ? load_relaxed(row_status + idx) : kInclusive;
-    }
-    int first = kLookback;  // this lane's nearest inclusive prefix
-#pragma unroll
-    for (int i = kLookback - 1; i >= 0; --i) {
-      while ((s[i] >> 32) == 0) s[i] = load_relaxed(row_status + base - lane * kLookback - i);
-      if ((s[i] >> 32) == 2) first = i;
-    }
-    const unsigned found = __ballot_sync(kFull, first < kLookback);
-    const int last = found ? __ffs(found) - 1 : 31;  // chunks back to the nearest inclusive prefix
-    unsigned sum = 0;
-#pragma unroll
-    for (int i = 0; i < kLookback; ++i) {
-      if (lane < last || (lane == last && i <= first)) sum += (unsigned)s[i];
-    }
-    excl += __reduce_add_sync(kFull, sum);
-    if (found) break;
-  }
-  asm volatile("fence.acq_rel.gpu;" ::: "memory");  // with the relaxed reads: an acquire of what they saw
-  if (lane == 0) store_release(row_status + index, kInclusive | (unsigned)(excl + agg));
-  return excl;
-}
-
 __global__ void __launch_bounds__(kThreads, 2) gear_compact_kernel(
     const uint8_t* __restrict__ data, const int32_t* __restrict__ lens, const uint32_t* __restrict__ gear_table,
     int32_t* __restrict__ out, unsigned long long* __restrict__ ticket, unsigned long long* __restrict__ status,
@@ -252,9 +207,9 @@ __global__ void __launch_bounds__(kThreads, 2) gear_compact_kernel(
       unsigned long long* row_status = status + cur.row * n_chunks;
       long long excl = 0;
       if (cur.index == 0) {
-        if (lane == 0) store_release(row_status, kInclusive | agg);
+        if (lane == 0) store_relaxed(row_status, kInclusive | agg);
       } else {
-        if (lane == 0) store_release(row_status + cur.index, kAggregate | agg);
+        if (lane == 0) store_relaxed(row_status + cur.index, kAggregate | agg);
         excl = look_back(row_status, cur.index, agg, lane);
       }
       if (lane == 0) {

@@ -29,7 +29,10 @@ Three more carry the fused batch step ``datapath_step`` (``ops/pipeline.py``):
   that divides N. Bound by bytes: strides that are a multiple of 64 take
   the same word product as K-C; other strides go byte by byte.
 - ``blockpack_encode`` (K-E, ``csrc/blockpack_encode.cu``) replaces the XLA
-  ``blockpack.py`` ``encode_device``. Bound by bytes.
+  ``blockpack.py`` ``encode_device``. Bound by bytes: one pass that reads
+  each tile once into shared memory (a bulk copy), finds its offset by a
+  decoupled look-back, and writes its literal run and a mirrored share of
+  the zero tail once each with 16-byte stores.
 
 Each source file says how its design answers its bound. Each wrapper checks
 its operands, then runs the plain version when the batch lies on the CPU and
@@ -77,6 +80,7 @@ FP_TILE = 4096  # K-C's bucket unit (its blocks take 16 KiB tiles, the last one 
 FP_WORD = 64  # K-D takes its word path for strides that are a multiple of this
 FP_FIXED_STEP = 256  # columns per K-D byte-path block step (256 threads x 1 byte)
 FP_FIXED_BLOCKS = 2048  # K-D's byte path splits segments over blocks until about this many run
+BLOCKPACK_TILE = 24576  # K-E's T0: the most bytes of a tile (its kTile), one status word each
 MAX_FIXED_SEG = 1 << 24  # the reference's u32 limb sums wrap past this segment length
 MAX_ROWS = 65535  # grid y limit
 
@@ -89,7 +93,7 @@ _KERNELS = {
     "segment_fp": ("segment_fp.cu", [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]),
     "gear_mask": ("gear_mask.cu", [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]),
     "segment_fp_fixed": ("segment_fp_fixed.cu", [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _I, _I, _P]),
-    "blockpack_encode": ("blockpack_encode.cu", [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]),
+    "blockpack_encode": ("blockpack_encode.cu", [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -444,25 +448,31 @@ def blockpack_encode_plain(batch: torch.Tensor, block_bytes: int):
     return tags, literals[:, :n].contiguous(), kept.sum(-1).to(torch.int32)
 
 
+def blockpack_tile_bytes(block_bytes: int) -> int:
+    """K-E's tile: the most whole blocks that fit in ``BLOCKPACK_TILE`` bytes,
+    or one block when a block is larger. A row's last tile may be shorter."""
+    return block_bytes * max(1, BLOCKPACK_TILE // block_bytes)
+
+
 def blockpack_encode(batch: torch.Tensor, block_bytes: int):
     """[B, N] uint8 -> (tags [B, N/block_bytes] uint8, literals [B, N] uint8,
     n_lit [B] int32): per block zero (0), constant (1) or literal (2); the
     kept bytes (a literal block whole, one byte of a constant block) as a
-    dense prefix in block order, zero after ``n_lit``."""
+    dense prefix in block order, zero after ``n_lit``. Any ``block_bytes``
+    that divides N; rows of any length and alignment."""
     b, n = _check_rows(batch)
     if block_bytes < 1 or n % block_bytes:
         raise ValueError(f"N={n} must be a multiple of block_bytes={block_bytes}")
     if batch.device.type == "cpu":
         return blockpack_encode_plain(batch, block_bytes)
-    nb = n // block_bytes
     dev = batch.device
-    tags = torch.empty((b, nb), dtype=torch.uint8, device=dev)
-    offsets = torch.empty((b, nb), dtype=torch.int32, device=dev)  # scratch
+    tags = torch.empty((b, n // block_bytes), dtype=torch.uint8, device=dev)
     literals = torch.empty((b, n), dtype=torch.uint8, device=dev)
     n_lit = torch.empty((b,), dtype=torch.int32, device=dev)
-    vec = block_bytes % 16 == 0 and n % 16 == 0 and batch.data_ptr() % 16 == 0
+    n_tiles = -(-n // blockpack_tile_bytes(block_bytes))
+    scratch = torch.empty((1 + b * n_tiles,), dtype=torch.int64, device=dev)  # ticket, status words
     _launch(
-        "blockpack_encode", dev, batch.data_ptr(), tags.data_ptr(), offsets.data_ptr(), literals.data_ptr(),
-        n_lit.data_ptr(), n, block_bytes, b, int(vec),
+        "blockpack_encode", dev, batch.data_ptr(), tags.data_ptr(), literals.data_ptr(), n_lit.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), n, block_bytes, b,
     )
     return tags, literals, n_lit

@@ -249,14 +249,71 @@ def test_segment_fp_fixed_matches_plain(dev, n, seg):
     assert torch.equal(got.cpu(), kernels.segment_fp_fixed(batch, seg, device_tables("cpu")))
 
 
-@pytest.mark.parametrize("n, block", [(1 << 18, 512), (1 << 18, 4096), (12000, 600), (4096, 4)])
-def test_blockpack_encode_matches_plain(dev, n, block):
-    batch = torch.from_numpy(_step_rows(np.random.default_rng(block), n, block))
-    got = kernels.blockpack_encode(batch.to(dev), block)
+BIG_BLOCK = kernels.BLOCKPACK_TILE + 8192  # larger than a tile: one block per tile, streamed twice
+
+
+def _encode_equal(batch_cpu, block, dev, batch_dev=None):
+    """K-E on the card (one launch) == its plain version on the CPU."""
+    kernels.reset_launch_counts()
+    got = kernels.blockpack_encode(batch_cpu.to(dev) if batch_dev is None else batch_dev, block)
     torch.cuda.synchronize()
-    want = kernels.blockpack_encode(batch, block)
+    assert kernels.launch_counts()["blockpack_encode"] == 1
+    want = kernels.blockpack_encode(batch_cpu, block)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize(
+    "n, block",
+    [(1 << 18, 512), (1 << 18, 4096), (12000, 600), (4096, 4), (1 << 16, 1), (1 << 18, 16), (3 * BIG_BLOCK, BIG_BLOCK),
+     (8200, 8), (100024, 8), (3 * (BIG_BLOCK + 8), BIG_BLOCK + 8), (70000, 7)],
+)
+def test_blockpack_encode_matches_plain(dev, n, block):
+    """Blocks of 1 to beyond a tile, a block that is not a power of two, and
+    rows whose length is not a multiple of 16 (byte loads instead of the
+    bulk copy, every literal run at another alignment)."""
+    _encode_equal(torch.from_numpy(_step_rows(np.random.default_rng(block), n, block)), block, dev)
+
+
+@pytest.mark.parametrize("block", [1, 16, 512, BIG_BLOCK])
+def test_blockpack_encode_unaligned_batch(dev, block):
+    """A contiguous batch whose data pointer is not 16-byte aligned (a view at
+    storage offset 1)."""
+    rows = _step_rows(np.random.default_rng(block + 1), 3 * BIG_BLOCK, block)
+    flat = torch.empty(rows.size + 1, dtype=torch.uint8, device=dev)
+    view = flat[1:].view(rows.shape)
+    view.copy_(torch.from_numpy(rows))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 1
+    _encode_equal(torch.from_numpy(rows), block, dev, batch_dev=view)
+
+
+@pytest.mark.parametrize("kind", ["zero", "literal"])
+@pytest.mark.parametrize("block", [1, 512, BIG_BLOCK])
+def test_blockpack_encode_all_zero_and_all_literal(dev, kind, block):
+    """n_lit 0 (every output byte from the zero ranges) and n_lit = n for
+    blocks of more than one byte (every byte from the literal runs)."""
+    n = 3 * BIG_BLOCK
+    rng = np.random.default_rng(block)
+    rows = np.zeros((4, n), np.uint8) if kind == "zero" else rng.integers(1, 256, (4, n), dtype=np.uint8)
+    if kind == "literal" and block > 1:
+        rows.reshape(4, -1, block)[:, :, 0] ^= 0x80  # no block is constant
+    _encode_equal(torch.from_numpy(rows), block, dev)
+
+
+def test_blockpack_encode_repeats_equal_plain(dev):
+    """20 launches at B = 8 x 8 MiB, bb 512, all equal to the plain version:
+    tiles run in another order each launch, so a race in the look-back or
+    the mirrored zero ranges would show."""
+    n = 1 << 23
+    rows = np.concatenate([_step_rows(np.random.default_rng(9), n, 512), _step_rows(np.random.default_rng(10), n, 512)[:3]])
+    batch = torch.from_numpy(rows).to(dev)
+    want = kernels.blockpack_encode_plain(batch, 512)
+    kernels.reset_launch_counts()
+    for _ in range(20):
+        got = kernels.blockpack_encode(batch, 512)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert kernels.launch_counts()["blockpack_encode"] == 20
 
 
 def test_datapath_step_on_card_matches_cpu(dev):
