@@ -8,7 +8,10 @@ Phases (any failure exits non-zero before the final ``ok`` line):
    the CUDA kernels from ``skyplane_tpu_torch/csrc`` (one nvcc per source,
    all at once) and print the build seconds, each kernel's registers, spills
    and shared memory (ptxas), and the integer mma (IMMA) count in the SASS
-   of the two fingerprint kernels, which fails if it is 0.
+   of the two fingerprint kernels, which fails if it is 0. Beside them, g++
+   builds the native host library (``skyplane_tpu_torch/native``): its path,
+   build seconds and whether ``-march=native`` took; it fails if the library
+   is not available. Whether the system liblz4 is present.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes (B = 8 rows of an 8 MiB bucket, cap 4096, 2050 slots) with
    a zero row, a short row with its garbage end and sentinel-padded ends;
@@ -19,12 +22,22 @@ Phases (any failure exits non-zero before the final ``ok`` line):
    64k + 1; all 0xFF bytes; a segment of 2^19 bytes, clamped; the bucket as
    the only end). Equality is exact (integer outputs). Each kernel and plain
    version is timed with CUDA events and printed beside its bound.
-3. The main path: ``DataPathProcessor(codec_name="tpu", dedup=True)`` over a
+3. The main path: ``DataPathProcessor(dedup=True)`` over a
    ``DeviceBatchRunner(max_batch=8)`` with 16 sender threads, on the bench's
    snapshot-chain corpus (4 snapshots x 6 chunks x 8 MiB, seed 0), with
-   fingerprints committed after each chunk. Launch counts are zeroed just
-   before and read just after. Then: sampled wire bytes equal the host
-   (numpy) path's, and every chunk restores byte-identical.
+   fingerprints committed after each chunk, in four passes: (a) codec
+   ``tpu`` with the native host library off, (b) ``tpu`` with it on (the
+   main path; its launches go in the kernel line), (c) ``native_lz``, (d)
+   ``lz4`` when liblz4 is present; two rounds in turns (a b c d, d c b a).
+   Launch counts are zeroed just before each pass and read just after. Each
+   pass prints Gbps, wire reduction, REF segments, batch windows and the
+   host split: per-thread CPU and wall time of the codec, the recipe, the
+   boundary selection, the staging copies, the blake2b finalize and the
+   leaders' batch runs, from wrappers this script installs, and the device
+   wait. Then: every chunk of each pass restores byte-identical under
+   paranoid verify (timed, with the library on and off), and sampled wire
+   bytes of codecs ``tpu`` and ``native_lz`` are equal across the device
+   path and the host path with the library on and off.
 4. One more pass of the main path under torch.profiler: the device's busy
    share of the wall time, device time by kernel or copy, and the traced
    time and launches of each kernel of the path. An error of the data path
@@ -412,7 +425,8 @@ def check_kernels(dev, chunks, params):
 
 def host_wire(chunk: bytes, index, codec, params):
     """What ``DataPathProcessor.process`` sends, computed on the host path
-    (numpy CDC + fingerprints, no device)."""
+    (CDC + fingerprints by ``cdc_and_fps_host``, no device: the native
+    library or numpy, as ``native.datapath`` is set)."""
     from skyplane_tpu_torch.ops.cdc import cdc_and_fps_host
     from skyplane_tpu_torch.ops.dedup import build_recipe
 
@@ -423,25 +437,101 @@ def host_wire(chunk: bytes, index, codec, params):
     return wire, n_ref, new_fps
 
 
-def main_path(dev, chunks, params, card: str) -> dict:
-    """Phase 3: the sender path over the corpus, then its checks. Returns the
-    kernel launches of the timed run."""
-    from skyplane_tpu_torch.chunk import ChunkFlags, WireProtocolHeader
+class HostSplit:
+    """Host time of the sender path by part, from wrappers installed around
+    the package's functions for one pass (nothing is counted inside the
+    package): per-thread CPU time (``time.thread_time_ns``) and wall time
+    (``perf_counter_ns``), summed over the sender threads. A call nested in
+    another of its own part counts once."""
+
+    PARTS = ("codec", "recipe_with_codec", "select_boundaries", "staging", "blake2b", "leader_batch")
+
+    def __init__(self):
+        self.cpu_ns = dict.fromkeys(self.PARTS, 0)
+        self.wall_ns = dict.fromkeys(self.PARTS, 0)
+        self._lock = threading.Lock()
+        self._tls = threading.local()
+        self._undo = []
+
+    def wrap(self, part: str, fn):
+        def timed(*args, **kwargs):
+            active = self._tls.__dict__.setdefault("active", set())
+            if part in active:
+                return fn(*args, **kwargs)
+            active.add(part)
+            c0, w0 = time.thread_time_ns(), time.perf_counter_ns()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dc, dw = time.thread_time_ns() - c0, time.perf_counter_ns() - w0
+                active.discard(part)
+                with self._lock:
+                    self.cpu_ns[part] += dc
+                    self.wall_ns[part] += dw
+
+        return timed
+
+    def _patch(self, owner, name: str, part: str, static: bool = False) -> None:
+        import inspect
+
+        orig = inspect.getattr_static(owner, name)
+        fn = orig.__func__ if static else orig
+        setattr(owner, name, staticmethod(self.wrap(part, fn)) if static else self.wrap(part, fn))
+        self._undo.append((owner, name, orig))
+
+    def install(self, proc) -> None:
+        from skyplane_tpu_torch.ops import batch_runner, fused_cdc, pipeline
+
+        proc.codec = proc.codec._replace(encode=self.wrap("codec", proc.codec.encode))
+        self._patch(pipeline, "build_recipe", "recipe_with_codec")
+        self._patch(fused_cdc, "select_boundaries", "select_boundaries")
+        self._patch(fused_cdc.FusedCDCFP, "stage", "staging")
+        self._patch(fused_cdc.FusedCDCFP, "_upload", "staging")
+        self._patch(fused_cdc, "digests_from_lanes", "blake2b")
+        self._patch(pipeline.DataPathProcessor, "_chunk_fingerprint", "blake2b", static=True)
+        self._patch(batch_runner.DeviceBatchRunner, "_run_batch", "leader_batch")
+
+    def uninstall(self) -> None:
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        self._undo = []
+
+    def summary(self, device_wait_ns: int) -> str:
+        cpu = dict(self.cpu_ns)
+        wall = dict(self.wall_ns)
+        cpu["recipe"] = cpu.pop("recipe_with_codec") - cpu["codec"]
+        wall["recipe"] = wall.pop("recipe_with_codec") - wall["codec"]
+        parts = ("codec", "recipe", "select_boundaries", "staging", "blake2b", "leader_batch")
+        return ("host split, CPU ms / wall ms summed over threads: " + ", ".join(
+            f"{k} {cpu[k] / 1e6:.1f} / {wall[k] / 1e6:.1f}" for k in parts) + f", device wait (wall) {device_wait_ns / 1e6:.1f} "
+            "(leader_batch: the leaders' batch runs, call A to call B's readback, selection and staging of the batch inside)")
+
+
+def thread_clock_step_ns(samples: int = 5) -> int:
+    """The smallest step of the per-thread CPU clock seen while spinning: the
+    resolution of the CPU ms of the host split on this machine."""
+    steps = []
+    for _ in range(samples):
+        t0 = time.thread_time_ns()
+        deadline = time.perf_counter() + 0.2
+        t1 = t0
+        while t1 == t0 and time.perf_counter() < deadline:
+            t1 = time.thread_time_ns()
+        steps.append(t1 - t0)
+    return min(steps)
+
+
+def sender_pass(dev, runner, chunks, params, codec: str, native_on: bool, label: str, card: str) -> dict:
+    """One timed pass of the sender path over the corpus (16 threads, fresh
+    index, fingerprints committed per chunk) with the host split, launch
+    counts zeroed just before and read just after."""
+    from skyplane_tpu_torch.native import datapath as native_dp
     from skyplane_tpu_torch.ops import kernels
-    from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
-    from skyplane_tpu_torch.ops.codecs import get_codec
-    from skyplane_tpu_torch.ops.dedup import SegmentStore, SenderDedupIndex
+    from skyplane_tpu_torch.ops.dedup import SenderDedupIndex
     from skyplane_tpu_torch.ops.pipeline import DataPathProcessor
 
-    raw_total = sum(len(c) for c in chunks)
-    runner = DeviceBatchRunner(cdc_params=params, max_batch=MAX_BATCH, device=dev)
-    warm = DataPathProcessor(codec_name="tpu", dedup=True, cdc_params=params, batch_runner=runner, device=dev)
-    warm_rng = np.random.default_rng(99)
-    warm_chunks = [warm_rng.integers(0, 256, CHUNK_MB << 20, dtype=np.uint8).tobytes() for _ in range(MAX_BATCH)]
-    with ThreadPoolExecutor(max_workers=WORKERS) as pool:
-        list(pool.map(lambda c: warm.process(c, SenderDedupIndex()), warm_chunks))
-
-    proc = DataPathProcessor(codec_name="tpu", dedup=True, cdc_params=params, batch_runner=runner, device=dev)
+    native_dp._available = native_on
+    proc = DataPathProcessor(codec_name=codec, dedup=True, cdc_params=params, batch_runner=runner, device=dev)
     index = SenderDedupIndex()
     done_order, payloads = [], {}
     order_lock = threading.Lock()
@@ -454,67 +544,143 @@ def main_path(dev, chunks, params, card: str) -> dict:
             payloads[i] = p
             done_order.append(i)
 
+    raw_total = sum(len(c) for c in chunks)
+    split = HostSplit()
+    split.install(proc)
     overflow0 = runner.fused.overflow_rows
     pre = runner.counters()
-    sync(dev)
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=WORKERS) as pool:
-        list(pool.map(one, range(len(chunks))))
-    sync(dev)
-    dt = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    try:
+        sync(dev)
+        kernels.reset_launch_counts()
+        cpu0, t0 = time.process_time(), time.perf_counter()
+        with ThreadPoolExecutor(max_workers=WORKERS) as pool:
+            list(pool.map(one, range(len(chunks))))
+        sync(dev)
+        dt, cpu_s = time.perf_counter() - t0, time.process_time() - cpu0
+        launches = kernels.launch_counts()
+    finally:
+        split.uninstall()
     post = runner.counters()
     wire_total = sum(len(p.wire_bytes) for p in payloads.values())
     n_seg = sum(p.n_segments for p in payloads.values())
     n_ref = sum(p.n_ref_segments for p in payloads.values())
-    overflow = runner.fused.overflow_rows - overflow0
-    windows = post["batch_windows"] - pre["batch_windows"]
-    log(f"phase 3 on {card}: {len(chunks)} chunks / {raw_total} bytes in {dt:.3f} s = "
-        f"{raw_total * 8 / dt / 1e9:.3f} Gbps effective; wire reduction {raw_total / wire_total:.3f}x "
-        f"({wire_total} wire bytes); REF segments {n_ref} of {n_seg}; overflow rows {overflow}; "
-        f"batch windows {windows}, padded rows {post['batch_padded_rows'] - pre['batch_padded_rows']}; "
-        f"kernel launches {launches}")
+    gbps = raw_total * 8 / dt / 1e9
+    log(f"phase 3 ({label}) on {card}: codec {codec}, native library {'on' if native_on else 'off'}: {len(chunks)} chunks / "
+        f"{raw_total} bytes in {dt:.3f} s = {gbps:.3f} Gbps effective; process CPU {cpu_s:.3f} s ({cpu_s / dt:.2f} cores); "
+        f"wire reduction {raw_total / wire_total:.3f}x ({wire_total} wire bytes); REF segments {n_ref} of {n_seg}; "
+        f"overflow rows {runner.fused.overflow_rows - overflow0}; batch windows {post['batch_windows'] - pre['batch_windows']}, "
+        f"padded rows {post['batch_padded_rows'] - pre['batch_padded_rows']}; kernel launches {launches}")
+    log(f"phase 3 ({label}): " + split.summary(proc.stats.as_dict()["device_wait_ns"]))
     if any(launches[k] == 0 for k in SLICE1):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if n_ref == 0:
         raise AssertionError("no REF segments on a snapshot chain")
+    return dict(launches=launches, payloads=payloads, done_order=done_order, gbps=gbps)
 
-    # sampled wire bytes == the host path's (fresh indexes, one chunk at a time)
-    codec = get_codec("tpu")
+
+def check_sample(dev, runner, chunks, params, codec_name: str) -> None:
+    """Sampled wire bytes: the device path's equal the host path's with the
+    native library on and with it off (fresh indexes, one chunk at a time)."""
+    from skyplane_tpu_torch.native import datapath as native_dp
+    from skyplane_tpu_torch.ops.codecs import get_codec
+    from skyplane_tpu_torch.ops.dedup import SenderDedupIndex
+    from skyplane_tpu_torch.ops.pipeline import DataPathProcessor
+
+    codec = get_codec(codec_name)
     sample = [0, 1, 2, 3, 4, 5, 6, 12]  # 6 and 12 are later snapshots of chunk 0
-    seq = DataPathProcessor(codec_name="tpu", dedup=True, cdc_params=params, batch_runner=runner, device=dev)
-    gi, hi = SenderDedupIndex(), SenderDedupIndex()
+    native_dp._available = True
+    seq = DataPathProcessor(codec_name=codec_name, dedup=True, cdc_params=params, batch_runner=runner, device=dev)
+    indexes = [SenderDedupIndex() for _ in range(3)]
     sample_refs = 0
+    t_on = t_off = 0.0
     for i in sample:
-        p = seq.process(chunks[i], gi)
-        wire, n_ref_h, new_h = host_wire(chunks[i], hi, codec, params)
-        if p.wire_bytes != wire or p.n_ref_segments != n_ref_h:
-            raise AssertionError(f"chunk {i}: wire bytes differ from the host path")
-        sample_refs += n_ref_h
-        for fp, size in p.new_fingerprints:
-            gi.add(fp, size)
-        for fp, size in new_h:
-            hi.add(fp, size)
+        native_dp._available = True
+        p = seq.process(chunks[i], indexes[0])
+        t0 = time.perf_counter()
+        on = host_wire(chunks[i], indexes[1], codec, params)
+        t1 = time.perf_counter()
+        native_dp._available = False
+        off = host_wire(chunks[i], indexes[2], codec, params)
+        t_on, t_off = t_on + t1 - t0, t_off + time.perf_counter() - t1
+        native_dp._available = True
+        if not (p.wire_bytes == on[0] == off[0]) or not (p.n_ref_segments == on[1] == off[1]):
+            raise AssertionError(f"chunk {i}, codec {codec_name}: wire bytes differ between the device path and the host path")
+        sample_refs += on[1]
+        for index, new in zip(indexes, (p.new_fingerprints, on[2], off[2])):
+            for fp, size in new:
+                index.add(fp, size)
     if sample_refs == 0:
         raise AssertionError("the sampled near-duplicates carried no REF segment")
-    log(f"phase 3: wire bytes of chunks {sample} equal the host path's ({sample_refs} REF segments)")
+    log(f"phase 3: codec {codec_name}: wire bytes of chunks {sample} equal across the device path and the host path "
+        f"with the native library on and off ({sample_refs} REF segments); host path {t_on:.3f} s on, {t_off:.3f} s off")
 
-    # every chunk of the main run restores byte-identical, in delivery order
-    receiver = DataPathProcessor(codec_name="tpu", dedup=True, cdc_params=params, paranoid_verify=True, device=dev)
+
+def check_restore(dev, chunks, params, result: dict, native_on: bool, label: str) -> None:
+    """Every chunk of a pass restores byte-identical under paranoid verify,
+    in delivery order; the receiver's literal check runs natively when the
+    library is on."""
+    from skyplane_tpu_torch.chunk import ChunkFlags, WireProtocolHeader
+    from skyplane_tpu_torch.native import datapath as native_dp
+    from skyplane_tpu_torch.ops.dedup import SegmentStore
+    from skyplane_tpu_torch.ops.pipeline import DataPathProcessor
+
+    native_dp._available = native_on
+    receiver = DataPathProcessor(codec_name="none", dedup=True, cdc_params=params, paranoid_verify=True, device=dev)
     store = SegmentStore()
-    for i in done_order:
-        p = payloads[i]
+    t0 = time.perf_counter()
+    for i in result["done_order"]:
+        p = result["payloads"][i]
         header = WireProtocolHeader(
             chunk_id=uuid.uuid4().hex, data_len=len(p.wire_bytes), raw_data_len=p.raw_len, codec=int(p.codec),
             flags=int(ChunkFlags.RECIPE) if p.is_recipe else 0, fingerprint=p.fingerprint,
         )
         got = receiver.restore(p.wire_bytes, header, store, ref_wait_timeout=5.0)
         if hashlib.blake2b(got, digest_size=16).digest() != hashlib.blake2b(chunks[i], digest_size=16).digest():
-            raise AssertionError(f"chunk {i} did not restore byte-identical")
-    log(f"phase 3: all {len(done_order)} chunks restored byte-identical (paranoid re-fingerprint on the card)")
+            raise AssertionError(f"pass {label}: chunk {i} did not restore byte-identical")
+    dt = time.perf_counter() - t0
+    native_dp._available = True
+    log(f"phase 3 ({label}): all {len(result['done_order'])} chunks restored byte-identical (paranoid re-fingerprint on "
+        f"the card), native library {'on' if native_on else 'off'}: {dt:.3f} s; verify_counters {receiver.verify_counters()}")
 
-    return launches
+
+def main_path(dev, chunks, params, card: str, with_lz4: bool) -> dict:
+    """Phase 3: the sender path over the corpus in passes (a) codec tpu with
+    the native library off, (b) tpu with it on (the main path), (c)
+    native_lz, (d) lz4 when liblz4 is present; two rounds in turns (a b c d,
+    then d c b a). Then the checks. Returns the kernel launches of pass (b)'s
+    first run."""
+    from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
+    from skyplane_tpu_torch.ops.dedup import SenderDedupIndex
+    from skyplane_tpu_torch.ops.pipeline import DataPathProcessor
+
+    runner = DeviceBatchRunner(cdc_params=params, max_batch=MAX_BATCH, device=dev)
+    warm = DataPathProcessor(codec_name="tpu", dedup=True, cdc_params=params, batch_runner=runner, device=dev)
+    warm_rng = np.random.default_rng(99)
+    warm_chunks = [warm_rng.integers(0, 256, CHUNK_MB << 20, dtype=np.uint8).tobytes() for _ in range(MAX_BATCH)]
+    with ThreadPoolExecutor(max_workers=WORKERS) as pool:
+        list(pool.map(lambda c: warm.process(c, SenderDedupIndex()), warm_chunks))
+
+    log(f"phase 3: the per-thread CPU clock steps by {thread_clock_step_ns() / 1e6:.3f} ms on this machine "
+        "(the host split's CPU ms are sums of whole steps)")
+    passes = {"a": ("tpu", False), "b": ("tpu", True), "c": ("native_lz", True)}
+    if with_lz4:
+        passes["d"] = ("lz4", True)
+    else:
+        log("phase 3: pass (d), codec lz4: not measured (liblz4.so.1 is not present on this machine)")
+    first, gbps = {}, {k: [] for k in passes}
+    for label in list(passes) + list(reversed(passes)):
+        codec, native_on = passes[label]
+        r = sender_pass(dev, runner, chunks, params, codec, native_on, label, card)
+        gbps[label].append(r["gbps"])
+        if label not in first:
+            first[label] = r
+            check_restore(dev, chunks, params, r, native_on, label)
+    log(f"phase 3 on {card}: Gbps by pass over two rounds: " + "; ".join(
+        f"({k}) {passes[k][0]}, native {'on' if passes[k][1] else 'off'}: " + ", ".join(f"{g:.3f}" for g in v)
+        for k, v in gbps.items()))
+    for codec in ("tpu", "native_lz"):
+        check_sample(dev, runner, chunks, params, codec)
+    return first["b"]["launches"]
 
 
 def device_busy(events):
@@ -830,6 +996,27 @@ def check_builds(kernels) -> None:
         log(line)
 
 
+def build_native() -> bool:
+    """Phase 1: build and load the native host library (fails without it:
+    the card's machine has g++, nvcc's host compiler); report liblz4.
+    Returns whether the lz4 pass can run."""
+    from skyplane_tpu_torch import native
+    from skyplane_tpu_torch.native import datapath as native_dp
+    from skyplane_tpu_torch.utils import lz4ref
+
+    native.load_library()
+    if not native_dp.available():
+        raise AssertionError("the native host library is not available (SKYPLANE_TPU_NATIVE_DATAPATH opt-out set?)")
+    info = native.build_info
+    log(f"phase 1: native host library {info['path']}: built in {info['seconds']:.2f} s "
+        f"(0.00: found built), -march=native {'took' if info['march_native'] else 'failed: portable build'}")
+    if lz4ref.available():
+        log("phase 1: lz4ref.available() True (system liblz4)")
+    else:
+        log("phase 1: lz4ref.available() False: liblz4.so.1 is not present, so the lz4 pass of phase 3 is not measured")
+    return lz4ref.available()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU", file=sys.stderr)
@@ -844,7 +1031,10 @@ def main() -> int:
     log(f"phase 1: device {kind} (count {torch.cuda.device_count()}), torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"phase 1: nvidia-smi: {card}")
     t0 = time.perf_counter()
-    build_s = kernels.build()
+    with ThreadPoolExecutor(max_workers=1) as pool:  # the host library builds beside the kernels
+        host_build = pool.submit(build_native)
+        build_s = kernels.build()
+        with_lz4 = host_build.result()
     log(f"phase 1: built {sorted(build_s)} in {time.perf_counter() - t0:.2f} s (per kernel: "
         + ", ".join(f"{k} {v:.2f}" for k, v in sorted(build_s.items())) + ")")
     check_builds(kernels)
@@ -856,7 +1046,7 @@ def main() -> int:
     params = CDCParams()
     errs, timings, bounds = check_kernels(dev, chunks, params)
 
-    launches = main_path(dev, chunks, params, card)
+    launches = main_path(dev, chunks, params, card, with_lz4)
     profile_main_path(dev, chunks, params, card)
     step_launches, step_errs, step_timings, step_bounds = batch_step(dev, chunks, card)
     launches.update({k: step_launches[k] for k in SLICE2})

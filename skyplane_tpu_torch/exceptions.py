@@ -14,3 +14,7 @@ class DedupIntegrityException(SkyplaneTpuException):
 
 class CodecException(SkyplaneTpuException):
     """Compression / decompression failure on the data path."""
+
+
+class MissingDependencyException(SkyplaneTpuException):
+    """A tool or library the data path needs is not installed (g++ for the native library)."""

@@ -1,0 +1,467 @@
+// Native CPU data-path kernels for gateways without an accelerator.
+//
+// The numpy fallbacks (ops/host_fallback.py) are memory-bound multi-pass
+// array programs (~16 MB/s gear, ~28 MB/s fingerprints on one core); these
+// single-pass loops run at memory speed and are bit-identical:
+//
+//  * gear+candidates: h_t = (h_{t-1} << 1) + G[b_t] in uint32 — the natural
+//    wraparound makes this EXACTLY the 32-byte windowed sum the device
+//    kernel computes (terms shifted >= 32 vanish), so boundaries agree with
+//    both the numpy and the TPU paths.
+//  * segment fingerprints: Horner form F = (F*r + b) mod (2^31-1) per lane
+//    equals sum b_i * r^(L-1-i) — no power tables, no second pass.
+
+#include <cstdint>
+#include <cstddef>
+
+#if defined(__AVX2__) || defined(__AVX512F__)
+#include <immintrin.h>
+#endif
+
+static const uint32_t M31 = 0x7FFFFFFFu;
+
+static inline uint32_t fold31(uint64_t x) {
+    x = (x >> 31) + (x & M31);
+    x = (x >> 31) + (x & M31);
+    uint32_t r = (uint32_t)x;
+    return r >= M31 ? r - M31 : r;
+}
+
+extern "C" {
+
+// out_mask[i] = 1 iff the top mask_bits of the rolling gear hash at i are 0.
+// mask_bits must be in [1, 31] (the Python wrapper validates).
+//
+// The recurrence h = (h << 1) + G[b] is a 2-cycle serial dependency chain, so
+// a single stream caps well below memory speed. h_t depends on only the last
+// 32 bytes (shifts past 31 vanish), so the array splits into eight streams
+// that each warm up over the 31 bytes before their range and then run
+// interleaved — eight independent chains fill the pipeline. Bit-identical to
+// the sequential loop for every position (the warm-up reproduces the full
+// window; stream 0 starts from the same implicit zero history).
+void skydp_gear_candidates(const uint8_t* data, uint64_t n, const uint32_t* table,
+                           uint32_t mask_bits, uint8_t* out_mask) {
+    const uint32_t shift = 32 - mask_bits;
+    if (n < 1024) {
+        uint32_t h = 0;
+        for (uint64_t i = 0; i < n; i++) {
+            h = (h << 1) + table[data[i]];
+            out_mask[i] = (h >> shift) == 0 ? 1 : 0;
+        }
+        return;
+    }
+    const int S = 8;
+    const uint64_t piece = n / S;
+    uint64_t start[S];
+    uint32_t h[S];
+    for (int k = 0; k < S; k++) {
+        start[k] = k * piece;
+        h[k] = 0;
+    }
+    for (int k = 1; k < S; k++) {  // 31-byte window warm-up per stream
+        for (uint64_t i = start[k] - 31; i < start[k]; i++) h[k] = (h[k] << 1) + table[data[i]];
+    }
+    // lockstep: S independent chains. novector: with AVX-512 enabled gcc
+    // auto-vectorizes the k-loop into vpgatherdd table loads, which measure
+    // ~3x SLOWER than the scalar interleave (gathers serialize in microcode)
+#pragma GCC novector
+    for (uint64_t j = 0; j < piece; j++) {
+#pragma GCC unroll 8
+        for (int k = 0; k < S; k++) {
+            const uint64_t i = start[k] + j;
+            h[k] = (h[k] << 1) + table[data[i]];
+            out_mask[i] = (h[k] >> shift) == 0 ? 1 : 0;
+        }
+    }
+    for (uint64_t i = (uint64_t)S * piece; i < n; i++) {  // n % S tail on the last stream
+        h[S - 1] = (h[S - 1] << 1) + table[data[i]];
+        out_mask[i] = (h[S - 1] >> shift) == 0 ? 1 : 0;
+    }
+}
+
+#if defined(__AVX512F__)
+// fold a u64 vector (< 2^64) into canonical [0, M31): two fold steps then a
+// masked conditional subtract. One zmm covers all 8 lanes.
+static inline __m512i fold31_zvec(__m512i x) {
+    const __m512i m31 = _mm512_set1_epi64((long long)M31);
+    x = _mm512_add_epi64(_mm512_srli_epi64(x, 31), _mm512_and_si512(x, m31));
+    x = _mm512_add_epi64(_mm512_srli_epi64(x, 31), _mm512_and_si512(x, m31));
+    const __mmask8 ge = _mm512_cmpge_epu64_mask(x, m31);
+    return _mm512_mask_sub_epi64(x, ge, x, m31);
+}
+#elif defined(__AVX2__)
+// fold a u64 vector (< 2^64) into canonical [0, M31): two fold steps then a
+// conditional subtract. Values stay < 2^32 after the first step, so the
+// signed 64-bit compare is safe.
+static inline __m256i fold31_vec(__m256i x) {
+    const __m256i m31 = _mm256_set1_epi64x((long long)M31);
+    x = _mm256_add_epi64(_mm256_srli_epi64(x, 31), _mm256_and_si256(x, m31));
+    x = _mm256_add_epi64(_mm256_srli_epi64(x, 31), _mm256_and_si256(x, m31));
+    const __m256i ge = _mm256_cmpgt_epi64(x, _mm256_set1_epi64x((long long)M31 - 1));
+    return _mm256_sub_epi64(x, _mm256_and_si256(ge, m31));
+}
+#endif
+
+// 8-lane polynomial segment fingerprints over GF(2^31-1), Horner form with
+// a stride-16 inner loop: F_{i+16} = F_i*r^16 + sum_j b_{i+j}*r^(15-j)
+// (mod M31) — the byte terms are independent, so the per-step critical path
+// is ONE mulmod per lane per 16 bytes instead of 16. With AVX2 the eight
+// lanes run as two 4x-u64 vectors (vpmuludq multiplies the u32 halves);
+// without it, the scalar loop below computes the identical values.
+// ends: n_ends segment end offsets (last == n); out_lanes: [n_ends][8] u32.
+void skydp_segment_fp(const uint8_t* data, uint64_t n, const int64_t* ends,
+                      uint64_t n_ends, const uint32_t* bases, uint32_t* out_lanes) {
+    (void)n;
+    uint32_t rp[32][8];  // rp[k][l] = r_l^(k+1) mod M31
+    for (int l = 0; l < 8; l++) {
+        rp[0][l] = bases[l] >= M31 ? bases[l] - M31 : bases[l];
+        for (int k = 1; k < 32; k++) rp[k][l] = fold31((uint64_t)rp[k - 1][l] * rp[0][l]);
+    }
+#if defined(__AVX512F__)
+    __m512i rpz[32];  // rp as u64 lanes: one zmm covers all 8 lanes
+    for (int k = 0; k < 32; k++) {
+        rpz[k] = _mm512_set_epi64(rp[k][7], rp[k][6], rp[k][5], rp[k][4],
+                                  rp[k][3], rp[k][2], rp[k][1], rp[k][0]);
+    }
+#elif defined(__AVX2__)
+    __m256i rpv[16][2];  // rp as u64 lanes: [k][0] = lanes 0-3, [k][1] = lanes 4-7
+    for (int k = 0; k < 16; k++) {
+        for (int v = 0; v < 2; v++) {
+            rpv[k][v] = _mm256_set_epi64x(rp[k][4 * v + 3], rp[k][4 * v + 2], rp[k][4 * v + 1], rp[k][4 * v]);
+        }
+    }
+#endif
+    int64_t start = 0;
+    for (uint64_t s = 0; s < n_ends; s++) {
+        const int64_t end = ends[s];
+        uint32_t f[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+        // Horner runs first-to-last: peel the length remainder at the HEAD so
+        // the strided loop covers an exact multiple of the stride
+#if defined(__AVX512F__)
+        // stride 32 with a SINGLE fold per step: byte terms are < 2^39 each,
+        // 32 of them sum below 2^44, and the one f-dependent product is
+        // < 2^62 — the whole step fits u64, so the critical path is one
+        // vpmuludq + one add + one fold31_zvec per 32 bytes (the 16-byte
+        // variant paid four folds per step and measured ~35% slower)
+        int64_t i = start;
+        const int64_t head_end = start + ((end - start) & 31);
+        for (; i < head_end; i++) {
+            const uint64_t b = data[i];
+            for (int l = 0; l < 8; l++) f[l] = fold31((uint64_t)f[l] * rp[0][l] + b);
+        }
+        __m512i fz = _mm512_set_epi64(f[7], f[6], f[5], f[4], f[3], f[2], f[1], f[0]);
+        for (; i + 32 <= end; i += 32) {
+            // zero-block fast path: snapshot/filesystem corpora carry long
+            // zero extents; an all-zero block contributes nothing to acc, so
+            // F just advances by r^32 — bit-identical to the general path
+            // (acc would be 0) at ~1/10 the work. ~2 extra uops when nonzero.
+            const __m256i raw = _mm256_loadu_si256((const __m256i*)(data + i));
+            if (_mm256_testz_si256(raw, raw)) {
+                fz = fold31_zvec(_mm512_mul_epu32(fz, rpz[31]));
+                continue;
+            }
+            __m512i acc = _mm512_set1_epi64(data[i + 31]);  // b_31 * r^0
+#if defined(__AVX512IFMA__)
+            // vpmadd52luq fuses the byte-term multiply and accumulate: every
+            // product byte*r^k < 2^39 fits the 52-bit window exactly, so the
+            // low-52 result is the full product (measured +10% vs mul+add).
+            // The f*r^32 chain product can reach 2^62 and must stay vpmuludq.
+#pragma GCC unroll 31
+            for (int j = 0; j < 31; j++) {
+                acc = _mm512_madd52lo_epu64(acc, _mm512_set1_epi64(data[i + j]), rpz[30 - j]);
+            }
+#else
+#pragma GCC unroll 31
+            for (int j = 0; j < 31; j++) {
+                acc = _mm512_add_epi64(acc, _mm512_mul_epu32(_mm512_set1_epi64(data[i + j]), rpz[30 - j]));
+            }
+#endif
+            fz = fold31_zvec(_mm512_add_epi64(_mm512_mul_epu32(fz, rpz[31]), acc));
+        }
+        {
+            uint64_t tmp[8];
+            _mm512_storeu_si512((void*)tmp, fz);
+            for (int j = 0; j < 8; j++) f[j] = (uint32_t)tmp[j];
+        }
+        // 16..31-byte tail after the head peel only occurs when the segment
+        // is shorter than 32 — already fully handled by the head loop
+#elif defined(__AVX2__)
+        int64_t i = start;
+        const int64_t head_end = start + ((end - start) & 15);
+        for (; i < head_end; i++) {
+            const uint64_t b = data[i];
+            for (int l = 0; l < 8; l++) f[l] = fold31((uint64_t)f[l] * rp[0][l] + b);
+        }
+        __m256i fv[2];
+        for (int v = 0; v < 2; v++)
+            fv[v] = _mm256_set_epi64x(f[4 * v + 3], f[4 * v + 2], f[4 * v + 1], f[4 * v]);
+        for (; i + 16 <= end; i += 16) {
+            __m256i bb[15];
+            for (int j = 0; j < 15; j++) bb[j] = _mm256_set1_epi64x(data[i + j]);
+            const __m256i b15 = _mm256_set1_epi64x(data[i + 15]);
+            for (int v = 0; v < 2; v++) {
+                // hi carries the only f-dependent product (< 2^62 + 3*2^39);
+                // mid/lo sum byte products (< 2^39 each) — no u64 overflow
+                __m256i hi = _mm256_add_epi64(
+                    _mm256_mul_epu32(fv[v], rpv[15][v]),
+                    _mm256_add_epi64(
+                        _mm256_mul_epu32(bb[0], rpv[14][v]),
+                        _mm256_add_epi64(_mm256_mul_epu32(bb[1], rpv[13][v]),
+                                         _mm256_mul_epu32(bb[2], rpv[12][v]))));
+                __m256i mid = _mm256_add_epi64(
+                    _mm256_add_epi64(_mm256_mul_epu32(bb[3], rpv[11][v]),
+                                     _mm256_mul_epu32(bb[4], rpv[10][v])),
+                    _mm256_add_epi64(
+                        _mm256_add_epi64(_mm256_mul_epu32(bb[5], rpv[9][v]),
+                                         _mm256_mul_epu32(bb[6], rpv[8][v])),
+                        _mm256_add_epi64(_mm256_mul_epu32(bb[7], rpv[7][v]),
+                                         _mm256_mul_epu32(bb[8], rpv[6][v]))));
+                __m256i lo = _mm256_add_epi64(
+                    _mm256_add_epi64(_mm256_mul_epu32(bb[9], rpv[5][v]),
+                                     _mm256_mul_epu32(bb[10], rpv[4][v])),
+                    _mm256_add_epi64(
+                        _mm256_add_epi64(_mm256_mul_epu32(bb[11], rpv[3][v]),
+                                         _mm256_mul_epu32(bb[12], rpv[2][v])),
+                        _mm256_add_epi64(
+                            _mm256_add_epi64(_mm256_mul_epu32(bb[13], rpv[1][v]),
+                                             _mm256_mul_epu32(bb[14], rpv[0][v])),
+                            b15)));
+                fv[v] = fold31_vec(_mm256_add_epi64(
+                    fold31_vec(hi), _mm256_add_epi64(fold31_vec(mid), fold31_vec(lo))));
+            }
+        }
+        for (int v = 0; v < 2; v++) {
+            uint64_t tmp[4];
+            _mm256_storeu_si256((__m256i*)tmp, fv[v]);
+            for (int j = 0; j < 4; j++) f[4 * v + j] = (uint32_t)tmp[j];
+        }
+#else
+        int64_t i = start;
+        const int64_t head_end = start + ((end - start) & 15);
+        for (; i < head_end; i++) {
+            const uint64_t b = data[i];
+            for (int l = 0; l < 8; l++) f[l] = fold31((uint64_t)f[l] * rp[0][l] + b);
+        }
+        for (; i + 16 <= end; i += 16) {
+            uint64_t b[16];
+            for (int j = 0; j < 16; j++) b[j] = data[i + j];
+            for (int l = 0; l < 8; l++) {
+                // multiple accumulation chains on purpose (measured 390 MB/s
+                // for 2 chains at stride 8 vs 215 for a single chain): only
+                // `hi` depends on f[l], so the byte chains retire in parallel
+                // with the f*r^16 critical path
+                uint64_t hi = (uint64_t)f[l] * rp[15][l] + (uint64_t)rp[14][l] * b[0] +
+                              (uint64_t)rp[13][l] * b[1] + (uint64_t)rp[12][l] * b[2];
+                uint64_t mid = (uint64_t)rp[11][l] * b[3] + (uint64_t)rp[10][l] * b[4] +
+                               (uint64_t)rp[9][l] * b[5] + (uint64_t)rp[8][l] * b[6] +
+                               (uint64_t)rp[7][l] * b[7] + (uint64_t)rp[6][l] * b[8];
+                uint64_t lo = (uint64_t)rp[5][l] * b[9] + (uint64_t)rp[4][l] * b[10] +
+                              (uint64_t)rp[3][l] * b[11] + (uint64_t)rp[2][l] * b[12] +
+                              (uint64_t)rp[1][l] * b[13] + (uint64_t)rp[0][l] * b[14] + b[15];
+                f[l] = fold31((uint64_t)fold31(hi) + fold31(mid) + fold31(lo));
+            }
+        }
+#endif
+        uint32_t* out = out_lanes + s * 8;
+        for (int l = 0; l < 8; l++) out[l] = f[l];
+        start = end;
+    }
+}
+
+// Fused CDC + fingerprints: sparse gear candidates -> greedy min/max boundary
+// selection -> 8-lane segment fingerprints, all in one call. This is the
+// host fast path (DataPathProcessor._cdc_and_fps): compared to the
+// mask-producing skydp_gear_candidates it never materializes the per-byte
+// candidate mask (a 1-byte store per input byte measures ~5x slower than the
+// rare-branch sparse append below) and skips the host-side flatnonzero +
+// Python selection loop entirely. Bit-identical to
+// select_boundaries(flatnonzero(gear_candidates(..)), ..) + skydp_segment_fp
+// (tested: tests/unit/test_native_datapath.py).
+//
+// out_ends must hold n/min_bytes + 2 entries, out_lanes 8x that. Returns the
+// number of segment ends written, or UINT64_MAX if max_ends was too small
+// (cannot happen with the documented sizing; checked anyway).
+uint64_t skydp_cdc_fp(const uint8_t* data, uint64_t n, const uint32_t* table,
+                      uint32_t mask_bits, uint64_t min_bytes, uint64_t max_bytes,
+                      const uint32_t* bases, int64_t* out_ends, uint32_t* out_lanes,
+                      uint64_t max_ends) {
+    const uint32_t shift = 32 - mask_bits;
+    // --- pass 1: sparse candidate positions (8 interleaved gear chains; see
+    // skydp_gear_candidates for why the chains are split and warmed up) ---
+    const int S = 8;
+    uint64_t n_cand = 0;
+    uint32_t* cand;
+    uint32_t small_buf[1024];
+    uint32_t* heap_buf = nullptr;
+    if (n < 1024) {
+        cand = small_buf;
+        uint32_t h = 0;
+        for (uint64_t i = 0; i < n; i++) {
+            h = (h << 1) + table[data[i]];
+            if ((h >> shift) == 0) cand[n_cand++] = (uint32_t)i;
+        }
+    } else {
+        const uint64_t piece = n / S;
+        // worst case every position is a candidate: piece entries per stream.
+        // The allocation is virtual — only pages actually written are touched,
+        // and real candidate density is ~2^-mask_bits.
+        heap_buf = (uint32_t*)__builtin_malloc((n + S) * sizeof(uint32_t));
+        if (!heap_buf) return ~(uint64_t)0;
+        cand = heap_buf;
+        uint64_t start_k[S];
+        uint32_t h[S];
+        uint64_t cnt[S];
+        uint32_t* buf[S];
+        for (int k = 0; k < S; k++) {
+            start_k[k] = k * piece;
+            h[k] = 0;
+            cnt[k] = 0;
+            buf[k] = heap_buf + k * (piece + 1);
+        }
+        for (int k = 1; k < S; k++) {  // 31-byte window warm-up per stream
+            for (uint64_t i = start_k[k] - 31; i < start_k[k]; i++) h[k] = (h[k] << 1) + table[data[i]];
+        }
+        // 8-byte word loads per stream, bytes extracted in-register: one load
+        // serves 8 hash steps, so the load ports carry only the table lookups
+        // (measured +14% vs per-byte loads; a zero-run-skip variant of this
+        // loop measured SLOWER — the run bookkeeping costs more than it saves)
+        const uint64_t words = piece / 8;
+#pragma GCC novector
+        for (uint64_t j = 0; j < words; j++) {
+            uint64_t w[S];
+            for (int k = 0; k < S; k++) __builtin_memcpy(&w[k], data + start_k[k] + j * 8, 8);
+#pragma GCC unroll 8
+            for (int b = 0; b < 8; b++) {
+                for (int k = 0; k < S; k++) {
+                    h[k] = (h[k] << 1) + table[(uint8_t)(w[k] >> (8 * b))];
+                    if (__builtin_expect((h[k] >> shift) == 0, 0)) buf[k][cnt[k]++] = (uint32_t)(start_k[k] + j * 8 + b);
+                }
+            }
+        }
+        for (int k = 0; k < S; k++) {  // piece % 8 tail per stream
+            for (uint64_t i = start_k[k] + words * 8; i < start_k[k] + piece; i++) {
+                h[k] = (h[k] << 1) + table[data[i]];
+                if ((h[k] >> shift) == 0) buf[k][cnt[k]++] = (uint32_t)i;
+            }
+        }
+        // merge: streams cover contiguous ascending ranges, so concatenation
+        // in stream order is globally position-sorted
+        for (int k = 0; k < S; k++) {
+            if (buf[k] != cand + n_cand) __builtin_memmove(cand + n_cand, buf[k], cnt[k] * 4);
+            n_cand += cnt[k];
+        }
+        uint32_t ht = h[S - 1];
+        for (uint64_t i = (uint64_t)S * piece; i < n; i++) {  // n % S tail
+            ht = (ht << 1) + table[data[i]];
+            if ((ht >> shift) == 0) cand[n_cand++] = (uint32_t)i;
+        }
+    }
+    // --- pass 2: greedy min/max boundary selection (mirror of
+    // ops/cdc.py select_boundaries, candidate positions -> segment ends) ---
+    uint64_t n_ends = 0;
+    uint64_t start = 0;
+    bool overflow = false;
+    for (uint64_t c = 0; c < n_cand && !overflow; c++) {
+        const uint64_t cut = (uint64_t)cand[c] + 1;
+        if (cut - start < min_bytes) continue;
+        while (cut - start > max_bytes) {  // candidate overshoots: forced cuts first
+            start += max_bytes;
+            if (n_ends >= max_ends) { overflow = true; break; }
+            out_ends[n_ends++] = (int64_t)start;
+        }
+        if (!overflow && cut - start >= min_bytes) {
+            if (n_ends >= max_ends) { overflow = true; break; }
+            out_ends[n_ends++] = (int64_t)cut;
+            start = cut;
+        }
+    }
+    while (!overflow && n - start > max_bytes) {
+        start += max_bytes;
+        if (n_ends >= max_ends) { overflow = true; break; }
+        out_ends[n_ends++] = (int64_t)start;
+    }
+    if (!overflow && (start < n || n_ends == 0)) {
+        if (n_ends >= max_ends) overflow = true;
+        else out_ends[n_ends++] = (int64_t)n;
+    }
+    __builtin_free(heap_buf);
+    if (overflow) return ~(uint64_t)0;
+    // --- pass 3: 8-lane segment fingerprints over the selected segments ---
+    skydp_segment_fp(data, n, out_ends, n_ends, bases, out_lanes);
+    return n_ends;
+}
+
+// Blockpack encode: per block_bytes block emit tag (0=zero, 1=const, 2=
+// literal) and the compacted literal stream (1 byte per const block, the
+// whole block for literals). data length must be a multiple of block_bytes
+// (callers pad). Returns the literal byte count.
+uint64_t skydp_blockpack_encode(const uint8_t* data, uint64_t n, uint64_t block_bytes,
+                                uint8_t* tags_out, uint8_t* lits_out) {
+    const uint64_t nb = n / block_bytes;
+    uint64_t lit = 0;
+    for (uint64_t b = 0; b < nb; b++) {
+        const uint8_t* block = data + b * block_bytes;
+        const uint8_t first = block[0];
+        bool is_const = true;
+        // word-at-a-time constant check
+        uint64_t pattern;
+        __builtin_memset(&pattern, first, 8);
+        uint64_t i = 0;
+        for (; i + 8 <= block_bytes; i += 8) {
+            uint64_t w;
+            __builtin_memcpy(&w, block + i, 8);
+            if (w != pattern) { is_const = false; break; }
+        }
+        if (is_const) {
+            for (; i < block_bytes; i++) {
+                if (block[i] != first) { is_const = false; break; }
+            }
+        }
+        if (is_const) {
+            if (first == 0) {
+                tags_out[b] = 0;  // TAG_ZERO
+            } else {
+                tags_out[b] = 1;  // TAG_CONST
+                lits_out[lit++] = first;
+            }
+        } else {
+            tags_out[b] = 2;  // TAG_LITERAL
+            __builtin_memcpy(lits_out + lit, block, block_bytes);
+            lit += block_bytes;
+        }
+    }
+    return lit;
+}
+
+// Blockpack decode: tags + compacted literal stream -> raw blocks.
+// out must hold nb*block_bytes bytes. Returns 0 on success, 1 when the tags
+// demand more literal bytes than were shipped (corrupt container).
+int skydp_blockpack_decode(const uint8_t* tags, uint64_t nb, const uint8_t* lits,
+                           uint64_t n_lit, uint64_t block_bytes, uint8_t* out) {
+    uint64_t lit = 0;
+    for (uint64_t b = 0; b < nb; b++) {
+        uint8_t* block = out + b * block_bytes;
+        switch (tags[b]) {
+            case 0:  // TAG_ZERO
+                __builtin_memset(block, 0, block_bytes);
+                break;
+            case 1:  // TAG_CONST
+                if (lit + 1 > n_lit) return 1;
+                __builtin_memset(block, lits[lit], block_bytes);
+                lit += 1;
+                break;
+            case 2:  // TAG_LITERAL
+                if (lit + block_bytes > n_lit) return 1;
+                __builtin_memcpy(block, lits + lit, block_bytes);
+                lit += block_bytes;
+                break;
+            default:  // invalid tag 3 (corrupt tag bits): match the numpy
+                      // fallback — zero block, consume no literals
+                __builtin_memset(block, 0, block_bytes);
+                break;
+        }
+    }
+    return 0;
+}
+
+}  // extern "C"

@@ -1,0 +1,124 @@
+"""ctypes bindings for the native host data-path kernels (``datapath.cpp``).
+
+Counterpart of ``skyplane_tpu/native/datapath.py``. Bit-identical to the
+numpy host paths and to the device kernels (tested); the host paths in
+``ops/cdc.py``, ``ops/fingerprint.py`` and ``ops/blockpack.py`` use them when
+the library builds and loads. ``SKYPLANE_TPU_NATIVE_DATAPATH=0`` opts out; a
+host with no g++ serves the numpy paths, whose results are the same.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional
+
+import numpy as np
+
+from skyplane_tpu_torch.native import load_library
+
+_available: Optional[bool] = None
+
+
+def available() -> bool:
+    """True when the native library builds and loads and the opt-out is not set."""
+    global _available
+    if _available is None:
+        if os.environ.get("SKYPLANE_TPU_NATIVE_DATAPATH", "1").strip().lower() in ("0", "false", "off"):
+            _available = False
+        else:
+            try:
+                load_library()
+                _available = True
+            except Exception:  # noqa: BLE001 — no g++, or no build: the numpy paths serve
+                _available = False
+    return _available
+
+
+def _u8p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _u32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+
+
+def _i64p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def gear_candidates(data: np.ndarray, mask_bits: int) -> np.ndarray:
+    """[N] uint8 -> [N] bool boundary-candidate mask (gear hash and top-bits
+    test in one pass)."""
+    if not 1 <= mask_bits <= 31:
+        raise ValueError(f"mask_bits must be in [1, 31], got {mask_bits}")
+    from skyplane_tpu_torch.ops.gear import GEAR_TABLE
+
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    table = np.ascontiguousarray(GEAR_TABLE, dtype=np.uint32)
+    out = np.empty(len(data), np.uint8)
+    load_library().skydp_gear_candidates(_u8p(data), len(data), _u32p(table), mask_bits, _u8p(out))
+    return out.view(bool)
+
+
+def cdc_fp(data: np.ndarray, mask_bits: int, min_bytes: int, max_bytes: int):
+    """CDC and segment fingerprints of one chunk in one native call:
+    [N] uint8 -> (ends [n_segments] int64, lanes [n_segments, 8] uint32).
+    Bit-identical to ``cdc_segment_ends`` + ``segment_fp_lanes``; candidate
+    positions are u32, so the caller keeps N below 4 GiB."""
+    if not 1 <= mask_bits <= 31:
+        raise ValueError(f"mask_bits must be in [1, 31], got {mask_bits}")
+    from skyplane_tpu_torch.ops.fingerprint import LANE_BASES
+    from skyplane_tpu_torch.ops.gear import GEAR_TABLE
+
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    n = len(data)
+    if n == 0:
+        return np.asarray([0], np.int64), np.zeros((1, 8), np.uint32)
+    table = np.ascontiguousarray(GEAR_TABLE, dtype=np.uint32)
+    bases = np.ascontiguousarray(LANE_BASES, dtype=np.uint32)
+    max_ends = n // min_bytes + 2
+    ends = np.empty(max_ends, np.int64)
+    lanes = np.empty((max_ends, 8), np.uint32)
+    n_ends = load_library().skydp_cdc_fp(
+        _u8p(data), n, _u32p(table), mask_bits, min_bytes, max_bytes, _u32p(bases), _i64p(ends), _u32p(lanes.reshape(-1)), max_ends
+    )
+    if n_ends == np.iinfo(np.uint64).max:
+        raise MemoryError("skydp_cdc_fp: segment buffer overflow or out of memory")
+    return ends[:n_ends].copy(), lanes[:n_ends].copy()
+
+
+def blockpack_encode(data: np.ndarray, block_bytes: int):
+    """[N] uint8 (N % block_bytes == 0) -> (tags [NB] uint8, literals, n_lit),
+    the contract of ``host_fallback.blockpack_encode_host``."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    tags = np.empty(len(data) // block_bytes, np.uint8)
+    lits = np.empty(len(data), np.uint8)  # worst case: every block literal
+    n_lit = load_library().skydp_blockpack_encode(_u8p(data), len(data), block_bytes, _u8p(tags), _u8p(lits))
+    return tags, lits[:n_lit], int(n_lit)
+
+
+def blockpack_decode(tags: np.ndarray, literals: np.ndarray, block_bytes: int) -> np.ndarray:
+    """(tags [NB], literals, block_bytes) -> [NB * block_bytes] uint8; raises
+    ``CodecException`` when the tags and the literal length disagree."""
+    from skyplane_tpu_torch.exceptions import CodecException
+
+    tags = np.ascontiguousarray(tags, dtype=np.uint8)
+    literals = np.ascontiguousarray(literals, dtype=np.uint8)
+    out = np.empty(len(tags) * block_bytes, np.uint8)
+    rc = load_library().skydp_blockpack_decode(_u8p(tags), len(tags), _u8p(literals), len(literals), block_bytes, _u8p(out))
+    if rc != 0:
+        raise CodecException("blockpack container corrupt: tag/literal length mismatch")
+    return out
+
+
+def segment_fp_lanes(data: np.ndarray, ends: np.ndarray) -> np.ndarray:
+    """[N] uint8 + segment ends -> [n_segments, 8] uint32 fingerprint lanes."""
+    from skyplane_tpu_torch.ops.fingerprint import LANE_BASES
+
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    ends = np.ascontiguousarray(ends, dtype=np.int64)
+    bases = np.ascontiguousarray(LANE_BASES, dtype=np.uint32)
+    out = np.empty((len(ends), 8), np.uint32)
+    load_library().skydp_segment_fp(_u8p(data), len(data), _i64p(ends), len(ends), _u32p(bases), _u32p(out))
+    return out

@@ -7,11 +7,12 @@ in stream order. Container layout (little-endian):
   magic 0xB1 0x0C | ver(1) | block_log2(1) | n_raw_bytes(8) | n_lit_bytes(8)
   | packed 2-bit tags (ceil(n_blocks/4) bytes) | literal bytes
 
-The container is encoded and decoded on the host with numpy
-(``ops/host_fallback.py``), byte-identical to the JAX package's native,
-numpy and device paths. ``encode_device`` is the batch step's device encode
-(the ``blockpack_encode`` CUDA kernel on a card, its plain version on the
-CPU); ``decode_device``, its inverse, is plain PyTorch.
+The container is encoded and decoded on the host by the native library's
+single-pass loops (``native/datapath.py``) when it is available, with numpy
+(``ops/host_fallback.py``) otherwise; both are byte-identical to the JAX
+package's native, numpy and device paths. ``encode_device`` is the batch
+step's device encode (the ``blockpack_encode`` CUDA kernel on a card, its
+plain version on the CPU); ``decode_device``, its inverse, is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ def _unpack_tags(buf: bytes, n_blocks: int) -> np.ndarray:
 
 def encode_container(data: bytes, block_bytes: int = DEFAULT_BLOCK_BYTES) -> bytes:
     """Raw bytes -> blockpack container."""
-    from skyplane_tpu_torch.ops.host_fallback import blockpack_encode_host
+    from skyplane_tpu_torch.native import datapath as native_dp
 
     n_raw = len(data)
     block_log2 = int(block_bytes).bit_length() - 1
@@ -93,13 +94,18 @@ def encode_container(data: bytes, block_bytes: int = DEFAULT_BLOCK_BYTES) -> byt
     arr = np.frombuffer(data, np.uint8)
     if pad:
         arr = np.concatenate([arr, np.zeros(pad, np.uint8)])
-    tags, lit, n_lit = blockpack_encode_host(arr, block_bytes)
+    if native_dp.available():
+        tags, lit, n_lit = native_dp.blockpack_encode(arr, block_bytes)
+    else:
+        from skyplane_tpu_torch.ops.host_fallback import blockpack_encode_host
+
+        tags, lit, n_lit = blockpack_encode_host(arr, block_bytes)
     return MAGIC + _HEAD.pack(VERSION, block_log2, n_raw, n_lit) + _pack_tags(tags) + lit.tobytes()
 
 
 def decode_container(buf: bytes) -> bytes:
     """Blockpack container -> raw bytes."""
-    from skyplane_tpu_torch.ops.host_fallback import blockpack_decode_host
+    from skyplane_tpu_torch.native import datapath as native_dp
 
     head_len = 2 + _HEAD.size
     if len(buf) < 2 or buf[:2] != MAGIC:
@@ -122,4 +128,10 @@ def decode_container(buf: bytes) -> bytes:
     literals = np.frombuffer(buf[head_len + tag_bytes : head_len + tag_bytes + n_lit], np.uint8)
     if len(literals) != n_lit:
         raise CodecException("truncated blockpack container")
-    return blockpack_decode_host(tags, literals, block_bytes)[:n_raw].tobytes()
+    if native_dp.available():
+        out = native_dp.blockpack_decode(tags, literals, block_bytes)
+    else:
+        from skyplane_tpu_torch.ops.host_fallback import blockpack_decode_host
+
+        out = blockpack_decode_host(tags, literals, block_bytes)
+    return out[:n_raw].tobytes()

@@ -62,20 +62,35 @@ def select_boundaries(candidates: np.ndarray, n: int, params: CDCParams) -> np.n
 
 
 def cdc_segment_ends(data, params: CDCParams = CDCParams()) -> np.ndarray:
-    """Full CDC of one chunk on the host (numpy): segment end offsets, last == len(data)."""
-    from skyplane_tpu_torch.ops.host_fallback import boundary_candidates_host, gear_hash_host
-
+    """Full CDC of one chunk on the host: segment end offsets, last == len(data).
+    The native gear pass when the library is available, numpy otherwise
+    (bit-identical)."""
     arr = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray, memoryview)) else np.asarray(data, np.uint8)
     if len(arr) == 0:
         return np.asarray([0], dtype=np.int64)
-    candidates = np.flatnonzero(boundary_candidates_host(gear_hash_host(arr), params.mask_bits))
-    return select_boundaries(candidates, len(arr), params)
+    from skyplane_tpu_torch.native import datapath as native_dp
+
+    if native_dp.available():
+        mask = native_dp.gear_candidates(arr, params.mask_bits)
+    else:
+        from skyplane_tpu_torch.ops.host_fallback import boundary_candidates_host, gear_hash_host
+
+        mask = boundary_candidates_host(gear_hash_host(arr), params.mask_bits)
+    return select_boundaries(np.flatnonzero(mask), len(arr), params)
 
 
 def cdc_and_fps_host(arr, params: CDCParams = CDCParams()) -> Tuple[np.ndarray, list]:
-    """Host CDC + segment digests: (ends, [16-byte digest, ...])."""
-    from skyplane_tpu_torch.ops.fingerprint import segment_fingerprints_host_batch
+    """Host CDC + segment digests: (ends, [16-byte digest, ...]). One fused
+    native call (gear candidates, boundary selection and lanes) when the
+    library is available, the two-stage path otherwise."""
+    from skyplane_tpu_torch.native import datapath as native_dp
+    from skyplane_tpu_torch.ops.fingerprint import digests_from_lanes, segment_fingerprints_host_batch
 
     arr = np.frombuffer(arr, np.uint8) if isinstance(arr, (bytes, bytearray, memoryview)) else np.asarray(arr, np.uint8)
+    # the fused call keeps candidate positions in u32: chunks of 4 GiB or
+    # more (MAX_CHUNK_BYTES allows 8 GiB) take the two-stage int64 path
+    if len(arr) and len(arr) < (1 << 32) and native_dp.available():
+        ends, lanes = native_dp.cdc_fp(arr, params.mask_bits, params.min_bytes, params.max_bytes)
+        return ends, digests_from_lanes(lanes, ends)
     ends = cdc_segment_ends(arr, params)
     return ends, segment_fingerprints_host_batch(arr, ends)

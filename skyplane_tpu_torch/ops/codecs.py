@@ -6,11 +6,10 @@ Same names and wire ids as the JAX package (``chunk.Codec``):
   zstd       — zstandard frame (``zstandard`` imported at first use)
   tpu        — blockpack container (ops/blockpack.py)
   tpu_zstd   — blockpack, then zstd over the container
-  native_lz  — not in this slice (the native library is not ported)
-  lz4        — not in this slice
+  native_lz  — the native LZ codec (native/lz.py, g++ build at first use)
+  lz4        — LZ4 frames through the system liblz4 (utils/lz4ref.py)
 
-The registry keeps every id so a port receiver recognises every frame a JAX
-sender may send; encode/decode of the codecs not ported raise CodecException.
+Each codec's module is imported at first use.
 """
 
 from __future__ import annotations
@@ -96,11 +95,33 @@ def _decode_tpu_zstd(buf: bytes) -> bytes:
     return _decode_tpu(_decode_zstd(buf))
 
 
-def _not_ported(name: str) -> Callable[[bytes], bytes]:
-    def fail(_buf: bytes) -> bytes:
-        raise CodecException(f"codec {name!r} is not in this slice of the port")
+def _encode_native(data: bytes) -> bytes:
+    from skyplane_tpu_torch.native import lz as native_lz
 
-    return fail
+    return native_lz.compress(data)
+
+
+def _decode_native(buf: bytes) -> bytes:
+    from skyplane_tpu_torch.native import lz as native_lz
+
+    return native_lz.decompress(buf)
+
+
+def _encode_lz4(data: bytes) -> bytes:
+    from skyplane_tpu_torch.utils import lz4ref
+
+    return lz4ref.compress(data)
+
+
+def _decode_lz4(buf: bytes) -> bytes:
+    # an LZ4 frame need not declare its content size: cap the output at the
+    # wire's chunk bound instead of trusting the frame
+    from skyplane_tpu_torch.utils import lz4ref
+
+    try:
+        return lz4ref.decompress(buf, MAX_CHUNK_BYTES)
+    except ValueError as e:
+        raise CodecException(f"lz4 decode failed: {e}") from e
 
 
 _REGISTRY: Dict[str, CodecSpec] = {
@@ -108,8 +129,9 @@ _REGISTRY: Dict[str, CodecSpec] = {
     "zstd": CodecSpec("zstd", Codec.ZSTD, _encode_zstd, _decode_zstd),
     "tpu": CodecSpec("tpu", Codec.TPU_BLOCK, _encode_tpu, _decode_tpu),
     "tpu_zstd": CodecSpec("tpu_zstd", Codec.TPU_BLOCK_ZSTD, _encode_tpu_zstd, _decode_tpu_zstd),
-    "native_lz": CodecSpec("native_lz", Codec.NATIVE_LZ, _not_ported("native_lz"), _not_ported("native_lz")),
-    "lz4": CodecSpec("lz4", Codec.LZ4, _not_ported("lz4"), _not_ported("lz4")),
+    "native_lz": CodecSpec("native_lz", Codec.NATIVE_LZ, _encode_native, _decode_native),
+    # registered on every host: encode/decode raise where liblz4 is absent
+    "lz4": CodecSpec("lz4", Codec.LZ4, _encode_lz4, _decode_lz4),
 }
 
 _BY_ID: Dict[int, CodecSpec] = {int(spec.codec_id): spec for spec in _REGISTRY.values()}

@@ -8,7 +8,8 @@ Eight lanes with independent bases; the 8 x uint32 lane vector and the
 segment length are mixed into the 16-byte wire fingerprint with blake2b on
 the host. The device functions here are the plain PyTorch versions (int64
 carriers); call B on the card is the ``segment_fp`` kernel in
-``ops/kernels.py``. The host functions are numpy.
+``ops/kernels.py``. The host functions use the native library
+(``native/datapath.py``) when it is available and numpy otherwise.
 """
 
 from __future__ import annotations
@@ -135,21 +136,34 @@ def _segment_lanes_np(arr: np.ndarray, starts, ends) -> np.ndarray:
 
 def segment_fingerprint_host(seg: bytes) -> bytes:
     """Host recompute of one segment's 16-byte wire fingerprint (receivers
-    verify literals with it before admitting them to the SegmentStore)."""
+    verify literals with it before admitting them to the SegmentStore): the
+    native lanes when the library is available, numpy otherwise."""
+    from skyplane_tpu_torch.native import datapath as native_dp
+
     n = len(seg)
     if n > MAX_SEGMENT_BYTES:
         raise ValueError(f"segment length {n} exceeds MAX_SEGMENT_BYTES {MAX_SEGMENT_BYTES}")
-    lanes = _segment_lanes_np(np.frombuffer(seg, np.uint8), [0], [n])
+    arr = np.frombuffer(seg, np.uint8)
+    if n and native_dp.available():
+        lanes = native_dp.segment_fp_lanes(arr, np.asarray([n], np.int64))
+    else:
+        lanes = _segment_lanes_np(arr, [0], [n])
     return bytes.fromhex(finalize_fingerprint(lanes[0], n))
 
 
 def segment_fingerprints_host_batch(arr: np.ndarray, ends: np.ndarray) -> list:
-    """All segment digests of one chunk on the host (numpy), in segment order."""
+    """All segment digests of one chunk on the host, in segment order (native
+    lanes when the library is available, numpy otherwise)."""
+    from skyplane_tpu_torch.native import datapath as native_dp
+
     ends = np.asarray(ends, np.int64)
     if len(arr) == 0 or len(ends) == 0:
         return []
-    starts = np.concatenate([[0], ends[:-1]])
-    return digests_from_lanes(_segment_lanes_np(arr, starts, ends), ends)
+    if native_dp.available():
+        lanes = native_dp.segment_fp_lanes(arr, ends)
+    else:
+        lanes = _segment_lanes_np(arr, np.concatenate([[0], ends[:-1]]), ends)
+    return digests_from_lanes(lanes, ends)
 
 
 def segment_fingerprint_np(data: np.ndarray, boundaries: np.ndarray) -> np.ndarray:

@@ -1,9 +1,8 @@
 """Numpy host kernels: the gear hash and the blockpack container codec.
 
-The port uses them where the reference does on an accelerator: exact host
-recompute of candidate-overflow rows, and the blockpack encode/decode of the
-``tpu`` codecs (the reference's native library is not ported; its numpy path
-is bit-identical to its native and device paths).
+The host paths use them where the native library (``native/datapath.py``)
+is not available or is opted out; they are bit-identical to it and to the
+device kernels.
 """
 
 from __future__ import annotations

@@ -61,6 +61,7 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
+from skyplane_tpu_torch.native import BUILD_DIR
 from skyplane_tpu_torch.ops.blockpack import TAG_CONST, TAG_LITERAL, TAG_ZERO
 from skyplane_tpu_torch.ops.fingerprint import (
     MAX_SEGMENT_BYTES,
@@ -71,7 +72,6 @@ from skyplane_tpu_torch.ops.fingerprint import (
 from skyplane_tpu_torch.ops.gear import boundary_candidate_mask, gear_hash
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "skyplane_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 GEAR_TILE = 8192  # bytes per K-AB sub-tile and per K-A' block: rows are a multiple of it

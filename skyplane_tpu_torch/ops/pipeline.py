@@ -23,6 +23,7 @@ plain PyTorch versions.
 from __future__ import annotations
 
 import hashlib
+import os
 import threading
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -199,8 +200,8 @@ def effective_codec_name(codec_name: str, device="cuda") -> str:
     """The codec a gateway runs for a configured name on ``device``:
     ``tpu_zstd`` becomes plain ``zstd`` on the CPU (the codec id travels in
     each wire header, so mixed gateways interoperate); every other name is
-    kept."""
-    if codec_name != "tpu_zstd":
+    kept. ``SKYPLANE_TPU_KEEP_TPU_CODEC=1`` keeps ``tpu_zstd`` on the CPU too."""
+    if codec_name != "tpu_zstd" or os.environ.get("SKYPLANE_TPU_KEEP_TPU_CODEC") == "1":
         return codec_name
     return codec_name if resolve_device(device).type == "cuda" else "zstd"
 
@@ -252,6 +253,10 @@ class DataPathProcessor:
         self.batch_runner = batch_runner  # shared DeviceBatchRunner across the worker pool
         self.paranoid_verify = paranoid_verify  # receivers re-fingerprint restored recipe chunks
         self._fused = None  # lazy FusedCDCFP for the unbatched path
+        # paranoid-verify counters (receiver): recipe chunks re-fingerprinted,
+        # and how many of them went through the shared batch runner
+        self._verify_total = 0
+        self._verify_batched = 0
         self.bufpool = batch_runner.pool if batch_runner is not None else BufferPool()
         self.stats = DataPathStats()
         if batch_runner is not None:
@@ -276,6 +281,10 @@ class DataPathProcessor:
 
             self._fused = FusedCDCFP(self.cdc_params, pool=self.bufpool, device=self.device)
         bucket = bucket_size(len(arr))
+        if len(arr) == bucket:
+            # a whole bucket already: no pooled copy (the upload copies)
+            ends, fps = self._fused(arr[None, :], [len(arr)])[0]
+            return _PhasedCDC(ends, lambda: fps)
         padded = self.bufpool.acquire(bucket)
         try:
             padded[: len(arr)] = arr
@@ -343,6 +352,10 @@ class DataPathProcessor:
 
     # ---- decode ----
 
+    def verify_counters(self) -> dict:
+        """Paranoid-verify counters, in the receiver's decode schema."""
+        return {"verify_total": self._verify_total, "verify_batched": self._verify_batched}
+
     def restore(
         self,
         payload: bytes,
@@ -380,6 +393,9 @@ class DataPathProcessor:
                     raise ChecksumMismatchException(f"chunk {header.chunk_id}: fingerprint mismatch")
             if self.paranoid_verify and header.is_recipe and header.fingerprint != "0" * 32:
                 # re-chunk the restored bytes and rebuild the sender's chunk fingerprint
+                self._verify_total += 1
+                if self.batch_runner is not None and self.device.type == "cuda":
+                    self._verify_batched += 1
                 _, seg_fps = self._cdc_and_fps(np.frombuffer(view, np.uint8))
                 if self._chunk_fingerprint(seg_fps, len(view)) != header.fingerprint:
                     raise ChecksumMismatchException(

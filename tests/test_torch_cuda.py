@@ -208,6 +208,55 @@ def test_processor_on_card_matches_cpu(dev):
             ci.add(fp, size)
 
 
+def test_main_path_native_on_card_matches_cpu(dev):
+    """8 MiB chunks through the card's main path with codec ``native_lz`` (the
+    native library on the host side): wire bytes equal the CPU run's, and
+    both restore byte-identical under paranoid verify."""
+    import uuid
+
+    from skyplane_tpu_torch.chunk import ChunkFlags, WireProtocolHeader
+    from skyplane_tpu_torch.native import datapath as native_dp
+    from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
+    from skyplane_tpu_torch.ops.dedup import SegmentStore, SenderDedupIndex
+    from skyplane_tpu_torch.ops.pipeline import DataPathProcessor
+
+    assert native_dp.available(), "the native library did not build"
+    rng = np.random.default_rng(12)
+    base = rng.integers(0, 256, 8 << 20, dtype=np.uint8)
+    base[1 << 20 : 3 << 20] = 0
+    near = base.copy()
+    near[5 << 20 : (5 << 20) + 40_000] = rng.integers(0, 256, 40_000, dtype=np.uint8)
+    chunks = [base.tobytes(), near.tobytes(), rng.integers(0, 256, (8 << 20) - 4097, dtype=np.uint8).tobytes()]
+    runner = DeviceBatchRunner(max_batch=4, device=dev)
+    out = {}
+    for name, proc in (
+        ("cuda", DataPathProcessor(codec_name="native_lz", batch_runner=runner, device=dev)),
+        ("cpu", DataPathProcessor(codec_name="native_lz", device="cpu")),
+    ):
+        index = SenderDedupIndex()
+        out[name] = []
+        for c in chunks:
+            p = proc.process(c, index)
+            for fp, size in p.new_fingerprints:
+                index.add(fp, size)
+            out[name].append(p)
+    assert [p.wire_bytes for p in out["cuda"]] == [p.wire_bytes for p in out["cpu"]]
+    assert out["cuda"][1].n_ref_segments > 0
+    for name, receiver in (
+        ("cuda", DataPathProcessor(codec_name="native_lz", batch_runner=runner, paranoid_verify=True, device=dev)),
+        ("cpu", DataPathProcessor(codec_name="native_lz", paranoid_verify=True, device="cpu")),
+    ):
+        store = SegmentStore()
+        for c, p in zip(chunks, out[name]):
+            header = WireProtocolHeader(
+                chunk_id=uuid.uuid4().hex, data_len=len(p.wire_bytes), raw_data_len=p.raw_len, codec=int(p.codec),
+                flags=int(ChunkFlags.RECIPE), fingerprint=p.fingerprint,
+            )
+            assert receiver.restore(p.wire_bytes, header, store) == c
+        batched = len(chunks) if name == "cuda" else 0
+        assert receiver.verify_counters() == {"verify_total": len(chunks), "verify_batched": batched}
+
+
 # ---- the batch step's kernels: K-A' gear_mask, K-D segment_fp_fixed, K-E blockpack_encode ----
 
 

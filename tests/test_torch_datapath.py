@@ -190,9 +190,12 @@ def test_blockpack_container_matches_reference():
         assert blockpack.decode_container(enc) == raw == jblockpack.decode_container(enc)
 
 
-def test_effective_codec_name_keys_on_device():
+def test_effective_codec_name_keys_on_device(monkeypatch):
     assert effective_codec_name("tpu_zstd", device="cpu") == "zstd"
     assert effective_codec_name("tpu", device="cpu") == "tpu"
+    # the opt-out keeps the container codec on the CPU, as the JAX package does
+    monkeypatch.setenv("SKYPLANE_TPU_KEEP_TPU_CODEC", "1")
+    assert effective_codec_name("tpu_zstd", device="cpu") == "tpu_zstd" == jpipeline.effective_codec_name("tpu_zstd")
 
 
 # ---- end to end ----
@@ -213,8 +216,13 @@ def _header(p, chunk_id, mod):
                flags=int(ChunkFlags.RECIPE) if p.is_recipe else 0, fingerprint=p.fingerprint)
 
 
-@pytest.mark.parametrize("codec", ["none", "tpu"])
+@pytest.mark.parametrize("codec", ["none", "tpu", "native_lz", "lz4"])
 def test_process_wire_bytes_match_reference_and_cross_restore(codec):
+    if codec == "lz4":
+        from skyplane_tpu_torch.utils import lz4ref
+
+        if not lz4ref.available():
+            pytest.skip("the system liblz4 (liblz4.so.1) is not present on this host")
     chunks = _mini_corpus()
     runner = DeviceBatchRunner(cdc_params=PARAMS, max_batch=4, device="cpu")
     port = DataPathProcessor(codec_name=codec, cdc_params=PARAMS, batch_runner=runner, paranoid_verify=True, device="cpu")
@@ -238,6 +246,41 @@ def test_process_wire_bytes_match_reference_and_cross_restore(codec):
         a, b = port.process(raw), ref.process(raw)
         assert (a.wire_bytes, a.codec, a.fingerprint, a.is_recipe) == (b.wire_bytes, b.codec, b.fingerprint, False)
         assert port.restore(b.wire_bytes, _header(b, uuid.uuid4().hex, WireProtocolHeader)) == raw
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_verify_counters_match_reference(batched):
+    chunks = _mini_corpus(seed=5)
+    runner = DeviceBatchRunner(cdc_params=PARAMS, max_batch=4, device="cpu") if batched else None
+    port = DataPathProcessor(codec_name="tpu", cdc_params=PARAMS, batch_runner=runner, paranoid_verify=True, device="cpu")
+    ref = jpipeline.DataPathProcessor(codec_name="tpu", cdc_params=JPARAMS, paranoid_verify=True)
+    assert port.verify_counters() == ref.verify_counters() == {"verify_total": 0, "verify_batched": 0}
+    sent = _process_all(ref, chunks, jdedup.SenderDedupIndex())
+    sent.append(ref.process(chunks[0]))  # a plain frame: no recipe, no paranoid verify
+    port_store, ref_store = SegmentStore(), jdedup.SegmentStore()
+    for c, b in zip(chunks + [chunks[0]], sent):
+        cid = uuid.uuid4().hex
+        assert port.restore(b.wire_bytes, _header(b, cid, WireProtocolHeader), port_store) == c
+        assert ref.restore(b.wire_bytes, _header(b, cid, JWireProtocolHeader), ref_store) == c
+    assert port.verify_counters() == ref.verify_counters() == {"verify_total": len(chunks), "verify_batched": 0}
+
+
+def test_exact_bucket_chunk_skips_the_pooled_copy(monkeypatch):
+    """The unbatched path hands a chunk that is already a whole bucket long to
+    FusedCDCFP as it is; results and pool counters equal the JAX package's
+    unbatched device path (run here on its CPU backend)."""
+    monkeypatch.setattr(jpipeline.DataPathProcessor, "_on_accelerator", staticmethod(lambda: True))
+    port = DataPathProcessor(codec_name="none", cdc_params=PARAMS, device="cpu")
+    ref = jpipeline.DataPathProcessor(codec_name="none", cdc_params=JPARAMS)
+    rng = np.random.default_rng(8)
+    for n in (1 << 16, 100_000, 1 << 17):  # a whole bucket, a padded one, a whole bucket again
+        arr = np.frombuffer(rng.integers(0, 256, n, dtype=np.uint8).tobytes(), np.uint8)  # read-only, as process() passes it
+        ends, fps = port._cdc_and_fps(arr)
+        j_ends, j_fps = ref._cdc_and_fps(arr)
+        np.testing.assert_array_equal(ends, j_ends)
+        assert fps == j_fps
+        assert port.bufpool.counters() == ref.bufpool.counters()
+    assert port.bufpool.counters()["pool_hits"] == 1  # the 2^17 chunk reused nothing but the ends scratch
 
 
 def test_index_from_reference_carries_a_warm_destination():
@@ -289,6 +332,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from skyplane_tpu_torch.ops.fingerprint import fixed_stride_lanes\n"
         "from skyplane_tpu_torch.ops.kernels import blockpack_encode, gear_mask, segment_fp_fixed\n"
         "from skyplane_tpu_torch.ops.pipeline import datapath_step\n"
+        "import numpy as np\n"
+        "from skyplane_tpu_torch.native import datapath, lz\n"
+        "from skyplane_tpu_torch.utils import lz4ref\n"
+        "from skyplane_tpu_torch.ops.host_fallback import boundary_candidates_host, gear_hash_host\n"
+        "x = np.random.default_rng(0).integers(0, 256, 4096, dtype=np.uint8)\n"
+        "assert datapath.available()\n"
+        "assert (datapath.gear_candidates(x, 4) == boundary_candidates_host(gear_hash_host(x), 4)).all()\n"
+        "assert lz.decompress(lz.compress(b'abc' * 100)) == b'abc' * 100\n"
+        "assert not lz4ref.available() or lz4ref.decompress(lz4ref.compress(b'abc'), 3) == b'abc'\n"
         "assert 'skyplane_tpu_torch.entry' in sys.modules\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.') or n == 'skyplane_tpu' or n.startswith('skyplane_tpu.'))\n"
         "print(len([n for n in sys.modules if n.startswith('skyplane_tpu_torch')]), bad)\n"
