@@ -1,4 +1,4 @@
-"""Smoke run of the skyplane_tpu_torch sender data path on one NVIDIA GPU.
+"""Smoke run of the skyplane_tpu_torch data path and gateway on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -60,6 +60,23 @@ Phases (any failure exits non-zero before the final ``ok`` line):
    a device-to-device copy of the same bytes, and at the other blocks; then
    20 steps under torch.profiler: the device's busy share of their wall
    time.
+6. The gateway's wire data plane (slice 7), wired as the daemon wires a
+   direct program (``skyplane_tpu_torch.gateway.loopback.LoopbackPair``):
+   the corpus written as 24 source files -> ``GatewayReadLocalOperator`` (8
+   workers) -> ``GatewaySenderOperator`` (16 workers, window 16, codec
+   ``tpu``, dedup, plaintext, its own ``DeviceBatchRunner(max_batch=8)``)
+   -> loopback TCP -> ``GatewayReceiver`` (dedup, its own runner,
+   ``SKYPLANE_TPU_PARANOID_VERIFY=1``: recipe chunks re-fingerprinted on the
+   card) -> ``GatewayWaitReceiverOperator`` -> ``GatewayWriteLocalOperator``
+   -> 24 destination files under ``build/``. Two rounds with fresh operators,
+   runners and index, launch counts zeroed just before the first and read
+   just after the second; then a third round under torch.profiler (the
+   device's busy share). Each round prints Gbps of raw bytes from the first
+   dispatch to the last file written, wire bytes, wire reduction, REF
+   segments, NACKs and resends, each runner's K-AB and K-C launches and the
+   receiver's ``verify_counters()``, and phase 3 (b)'s Gbps beside them. It
+   fails if a destination file differs from its source, an operator fails,
+   a runner launches no kernel, or ``verify_batched`` is 0.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 line describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -69,12 +86,15 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
+import shutil
 import subprocess
 import sys
 import threading
 import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -648,7 +668,7 @@ def main_path(dev, chunks, params, card: str, with_lz4: bool) -> dict:
     the native library off, (b) tpu with it on (the main path), (c)
     native_lz, (d) lz4 when liblz4 is present; two rounds in turns (a b c d,
     then d c b a). Then the checks. Returns the kernel launches of pass (b)'s
-    first run."""
+    first run and pass (b)'s Gbps in both rounds."""
     from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
     from skyplane_tpu_torch.ops.dedup import SenderDedupIndex
     from skyplane_tpu_torch.ops.pipeline import DataPathProcessor
@@ -680,7 +700,173 @@ def main_path(dev, chunks, params, card: str, with_lz4: bool) -> dict:
         for k, v in gbps.items()))
     for codec in ("tpu", "native_lz"):
         check_sample(dev, runner, chunks, params, codec)
-    return first["b"]["launches"]
+    return first["b"]["launches"], gbps["b"]
+
+
+class GatewaySplit(HostSplit):
+    """Host time of phase 6 by stage, summed over every thread of both
+    gateways (same wrappers as HostSplit): the source's file reads, the
+    sender's framing (the staged chunk read and the data path) and its data
+    path alone, the receiver's socket reads, whole decode tasks and, inside
+    them, the recipe assembly (literal blob decode, literal fingerprints,
+    segment store), the paranoid re-fingerprint and the landing write; the
+    destination's wait-receiver polls (20 ms sleeps included) and file
+    writes."""
+
+    PARTS = ("read_local", "frame", "sender_datapath", "recv", "decode", "recipe_restore", "paranoid_verify", "land",
+             "wait_receiver", "write_local")
+
+    def install(self, proc=None) -> None:
+        from skyplane_tpu_torch.gateway.operators import gateway_operator as op
+        from skyplane_tpu_torch.gateway.operators import gateway_receiver as rx
+        from skyplane_tpu_torch.ops import pipeline
+
+        self._patch(op.GatewayReadLocalOperator, "process", "read_local")
+        self._patch(op.GatewaySenderOperator, "_frame_chunk", "frame")
+        self._patch(pipeline.DataPathProcessor, "process", "sender_datapath")
+        self._patch(rx.GatewayReceiver, "_recv_exact", "recv")
+        self._patch(rx.GatewayReceiver, "_process_task", "decode")
+        self._patch(pipeline, "parse_recipe", "recipe_restore")
+        self._patch(pipeline.DataPathProcessor, "_cdc_and_fps", "paranoid_verify")
+        self._patch(rx.GatewayReceiver, "_land", "land", static=True)
+        self._patch(op.GatewayWaitReceiverOperator, "process", "wait_receiver")
+        self._patch(op.GatewayWriteLocalOperator, "process", "write_local")
+
+    def summary(self, device_wait_ns: int = 0) -> str:
+        return "host split by stage, CPU ms / wall ms summed over threads: " + ", ".join(
+            f"{k} {self.cpu_ns[k] / 1e6:.1f} / {self.wall_ns[k] / 1e6:.1f}" for k in self.PARTS)
+
+
+GATEWAY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_gateway"  # gitignored, inside the checkout
+
+
+def gateway_round(dev, files, chunks, params, card: str, label: str, trace: bool = False) -> float:
+    """One round of phase 6 with fresh operators, runners and index: submit
+    the 24 chunks, wait for the 24 destination files, check each against its
+    source. Returns the round's Gbps."""
+    from skyplane_tpu_torch.chunk import Chunk, ChunkRequest
+    from skyplane_tpu_torch.gateway.loopback import LoopbackPair
+    from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
+
+    for _, dest in files:
+        dest.unlink(missing_ok=True)
+    root = GATEWAY_DIR / f"round_{label}"
+    send_runner = DeviceBatchRunner(cdc_params=params, max_batch=MAX_BATCH, device=dev)
+    recv_runner = DeviceBatchRunner(cdc_params=params, max_batch=MAX_BATCH, device=dev)
+    pair = LoopbackPair(
+        root,
+        sender_kw=dict(codec_name="tpu", dedup=True, cdc_params=params, use_tls=False, batch_runner=send_runner,
+                       window=16, device=dev),
+        receiver_kw=dict(dedup=True, cdc_params=params, use_tls=False, batch_runner=recv_runner, device=dev),
+        n_read=8, n_send=WORKERS,
+    )
+    reqs = [
+        ChunkRequest(chunk=Chunk(src_key=str(src), dest_key=str(dest), chunk_id=uuid.uuid4().hex,
+                                 chunk_length_bytes=len(c), file_offset_bytes=0))
+        for (src, dest), c in zip(files, chunks)
+    ]
+    split = None if trace else GatewaySplit()
+    if split is not None:
+        split.install()
+    prof = None
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    pair.start()
+    try:
+        cpu0, t0 = time.process_time(), time.perf_counter()
+        pair.submit(reqs)
+        written = pair.wait_written(len(reqs), timeout=300.0)
+        dt, cpu_s = time.perf_counter() - t0, time.process_time() - cpu0
+        errors = pair.errors()
+        if pair.error_event.is_set() or errors:
+            raise AssertionError(f"phase 6 ({label}): an operator failed: {errors}")
+        if len(written) != len(reqs):
+            raise AssertionError(f"phase 6 ({label}): {len(written)} of {len(reqs)} chunks written in 300 s")
+        for i, ((_, dest), c) in enumerate(zip(files, chunks)):
+            if hashlib.blake2b(dest.read_bytes(), digest_size=16).digest() != hashlib.blake2b(c, digest_size=16).digest():
+                raise AssertionError(f"phase 6 ({label}): destination file {i} differs from its source")
+        stats = pair.sender.datapath_counters()
+        wire = pair.sender.wire_counters()
+        decode = pair.receiver.decode_counters()
+        verify = pair.receiver.processor.verify_counters()
+    finally:
+        if prof is not None:
+            sync(dev)
+            prof.stop()
+        if split is not None:
+            split.uninstall()
+        pair.stop()
+    raw_total = sum(len(c) for c in chunks)
+    gbps = raw_total * 8 / dt / 1e9
+    launches = {"sender": send_runner.fused.launch_counts(), "receiver": recv_runner.fused.launch_counts()}
+    log(f"phase 6 ({label}) on {card}: {len(reqs)} of {len(reqs)} files written byte-identical, {raw_total} bytes in "
+        f"{dt:.3f} s = {gbps:.3f} Gbps from the first dispatch to the last file written; wire bytes {stats['wire_bytes']}, "
+        f"wire reduction {raw_total / stats['wire_bytes']:.3f}x, REF segments {stats['ref_segments']} of {stats['segments']}; "
+        f"NACKs {wire['nacks_reaped']}, resends {wire['frames_sent'] - len(reqs)}, stream resets {wire['stream_resets']}, "
+        f"streams {wire['streams_open']}; runner launches {launches}; receiver verify_counters {verify}; "
+        f"process CPU {cpu_s:.3f} s ({cpu_s / dt:.2f} cores)")
+    if split is not None:
+        log(f"phase 6 ({label}): " + split.summary())
+    log(f"phase 6 ({label}): sender wire: ack lag {wire['ack_lag_ns'] / 1e9:.3f} s summed over frames, wire stall "
+        f"{wire['wire_stall_ns'] / 1e9:.3f} s, frames pipelined {wire['frames_pipelined']}; sender device wait "
+        f"{stats['device_wait_ns'] / 1e9:.3f} s summed over workers, batch windows {stats['batch_windows']} "
+        f"(rows {stats['batch_rows']}); receiver: decode {decode['decode_ns'] / 1e9:.3f} s summed over "
+        f"{decode['decode_workers']} decode workers, REF waits {decode['store_ref_wait_ns'] / 1e9:.3f} s, "
+        f"store hits {decode['store_mem_hits']}")
+    for side, counts in launches.items():
+        if any(counts.get(k, 0) == 0 for k in SLICE1):
+            raise AssertionError(f"phase 6 ({label}): the {side}'s runner launched no {SLICE1}: {counts}")
+    if verify["verify_batched"] == 0:
+        raise AssertionError(f"phase 6 ({label}): no recipe chunk was re-fingerprinted through the receiver's runner: {verify}")
+    if prof is not None:
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not events:
+            raise AssertionError(f"phase 6 ({label}): the traced round recorded no device events")
+        busy_us, top = device_busy(events)
+        log(f"phase 6 ({label}) on {card}: traced round: wall {dt:.3f} s, device busy {busy_us / 1e3:.3f} ms = "
+            f"{busy_us / 1e6 / dt:.2%} of wall (idle {1 - busy_us / 1e6 / dt:.2%}); device time by name (ms): "
+            + "; ".join(f"{name[:60]} {us / 1e3:.3f}" for name, us in top))
+    return gbps
+
+
+def gateway_phase(dev, chunks, params, card: str, main_gbps) -> None:
+    """Phase 6: the gateway's wire data plane from 24 source files to 24
+    destination files (see the module docstring)."""
+    from skyplane_tpu_torch.native import datapath as native_dp
+    from skyplane_tpu_torch.ops import kernels
+
+    native_dp._available = True  # the main path's configuration, pass (b)
+    paranoid = os.environ.get("SKYPLANE_TPU_PARANOID_VERIFY")
+    os.environ["SKYPLANE_TPU_PARANOID_VERIFY"] = "1"
+    shutil.rmtree(GATEWAY_DIR, ignore_errors=True)
+    (GATEWAY_DIR / "src").mkdir(parents=True)
+    (GATEWAY_DIR / "dst").mkdir(parents=True)
+    files = []
+    for i, c in enumerate(chunks):
+        src = GATEWAY_DIR / "src" / f"chunk{i:02d}.bin"
+        src.write_bytes(c)
+        files.append((src, GATEWAY_DIR / "dst" / f"chunk{i:02d}.bin"))
+    try:
+        sync(dev)
+        kernels.reset_launch_counts()
+        gbps = [gateway_round(dev, files, chunks, params, card, label) for label in ("1", "2")]
+        sync(dev)
+        launches = kernels.launch_counts()
+        gateway_round(dev, files, chunks, params, card, "traced", trace=True)
+    finally:
+        if paranoid is None:
+            os.environ.pop("SKYPLANE_TPU_PARANOID_VERIFY", None)
+        else:
+            os.environ["SKYPLANE_TPU_PARANOID_VERIFY"] = paranoid
+        shutil.rmtree(GATEWAY_DIR, ignore_errors=True)
+    log(f"phase 6 on {card}: gateway Gbps over two rounds: " + ", ".join(f"{g:.3f}" for g in gbps)
+        + "; phase 3 (b), the sender path alone, in this call: " + ", ".join(f"{g:.3f}" for g in main_gbps)
+        + f"; process-wide kernel launches of the two rounds {launches}")
+    if any(launches[k] == 0 for k in SLICE1):
+        raise AssertionError(f"a kernel of the gateway path never launched: {launches}")
 
 
 def device_busy(events):
@@ -1046,9 +1232,10 @@ def main() -> int:
     params = CDCParams()
     errs, timings, bounds = check_kernels(dev, chunks, params)
 
-    launches = main_path(dev, chunks, params, card, with_lz4)
+    launches, main_gbps = main_path(dev, chunks, params, card, with_lz4)
     profile_main_path(dev, chunks, params, card)
     step_launches, step_errs, step_timings, step_bounds = batch_step(dev, chunks, card)
+    gateway_phase(dev, chunks, params, card, main_gbps)
     launches.update({k: step_launches[k] for k in SLICE2})
     errs.update(step_errs)
     timings.update(step_timings)

@@ -141,6 +141,7 @@ class FusedCDCFP:
         self._stage_stream = torch.cuda.Stream(self.device) if cuda else None  # submit-time row uploads
         self._lock = threading.Lock()
         self.overflow_rows = 0  # rows recomputed on the host (candidate count above the cap)
+        self._launches: dict = {}  # this driver's kernel launches (kernels.launch_tally)
 
     def _on_stream(self):
         return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
@@ -166,6 +167,11 @@ class FusedCDCFP:
     def counters(self) -> dict:
         return {"donated_batches": 0}
 
+    def launch_counts(self) -> dict:
+        """Kernel launches made by this driver (name -> launches), apart from
+        the process-wide ``kernels.launch_counts()``."""
+        return kernels.tally_snapshot(self._launches)
+
     def dispatch(self, batch, lens, dev_rows: Optional[list] = None) -> PendingBatch:
         """Run call A + host boundary selection and ENQUEUE call B.
 
@@ -174,6 +180,10 @@ class FusedCDCFP:
         staging failed) carry the compute input when given; host rows are
         then only read on the candidate-overflow fallback.
         """
+        with kernels.launch_tally(self._launches):
+            return self._dispatch(batch, lens, dev_rows)
+
+    def _dispatch(self, batch, lens, dev_rows: Optional[list]) -> PendingBatch:
         if isinstance(batch, (list, tuple)):
             host_rows = list(batch)
             b, bucket = len(host_rows), len(host_rows[0])

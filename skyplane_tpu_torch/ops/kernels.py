@@ -37,7 +37,9 @@ Three more carry the fused batch step ``datapath_step`` (``ops/pipeline.py``):
 Each source file says how its design answers its bound. Each wrapper checks
 its operands, then runs the plain version when the batch lies on the CPU and
 launches the kernel when it lies on a CUDA device; a failed launch raises,
-there is no fallback. ``launch_counts()`` counts kernel launches only.
+there is no fallback. ``launch_counts()`` counts kernel launches only;
+``launch_tally(counts)`` also adds this thread's launches to ``counts``, so a
+driver (a sender's runner, a receiver's) can tell its launches from another's.
 
 Build: each source is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface under ``build/skyplane_tpu_torch/`` (named by
@@ -56,6 +58,7 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -111,6 +114,28 @@ def reset_launch_counts() -> None:
     with _lock:
         for name in _launches:
             _launches[name] = 0
+
+
+_tally = threading.local()
+
+
+@contextmanager
+def launch_tally(counts: Dict[str, int]):
+    """Within the block, this thread's kernel launches are also added to
+    ``counts`` (name -> launches), besides the process-wide counts."""
+    outer = getattr(_tally, "counts", None)
+    _tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _tally.counts = outer
+
+
+def tally_snapshot(counts: Dict[str, int]) -> Dict[str, int]:
+    """A copy of a ``launch_tally`` dict, taken under the lock that launches
+    from other threads add to it under."""
+    with _lock:
+        return dict(counts)
 
 
 # ---- build and load ----
@@ -190,6 +215,9 @@ def _launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     with _lock:
         _launches[name] += 1
+        tally = getattr(_tally, "counts", None)
+        if tally is not None:
+            tally[name] = tally.get(name, 0) + 1
 
 
 # ---- operand checks ----

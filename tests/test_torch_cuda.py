@@ -9,6 +9,9 @@ a card, without the repo's conftest (which imports jax):
 Equality is exact: every output is an integer.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -387,3 +390,58 @@ def test_entry_twin_on_card(dev):
     got, want = fn(*args), fn_cpu(*args_cpu)
     for k in want:
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_gateway_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """The port's serial sender frames the same bytes with its runner on the
+    card as on the CPU, and a ``LoopbackPair`` with both runners on the card
+    (paranoid verify on) lands every file byte-identical, launching K-AB and
+    K-C on each side."""
+    from skyplane_tpu_torch.chunk import Chunk, ChunkRequest
+    from skyplane_tpu_torch.gateway.loopback import LoopbackPair
+    from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
+
+    # loaded by path: the card's machine has another top-level ``tests`` package
+    spec = importlib.util.spec_from_file_location("torch_gateway_util", Path(__file__).with_name("torch_gateway_util.py"))
+    util = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(util)
+    run_sender, write_sources = util.run_sender, util.write_sources
+    rng = np.random.default_rng(77)
+    base = rng.integers(0, 256, 300_000, dtype=np.uint8).tobytes()
+    datas = [base, rng.integers(0, 256, 200_000, dtype=np.uint8).tobytes(), base, base[:150_000] + bytes(60_000)]
+    frames = []
+    for d in (torch.device("cpu"), dev):
+        runner = DeviceBatchRunner(cdc_params=PARAMS, max_batch=8, device=d)
+        frames.append(run_sender(
+            "port", tmp_path, datas, codec_name="tpu", dedup=True, pipelined=False, max_streams=1,
+            window=len(datas), cdc_params=PARAMS, batch_runner=runner, device=d,
+        ))
+    assert frames[0] == frames[1], "the card's frames differ from the CPU's"
+
+    monkeypatch.setenv("SKYPLANE_TPU_PARANOID_VERIFY", "1")
+    files = write_sources(tmp_path / "pair", datas)
+    send_runner = DeviceBatchRunner(cdc_params=PARAMS, max_batch=8, device=dev)
+    recv_runner = DeviceBatchRunner(cdc_params=PARAMS, max_batch=8, device=dev)
+    pair = LoopbackPair(
+        tmp_path / "pair" / "gw",
+        sender_kw=dict(codec_name="tpu", dedup=True, cdc_params=PARAMS, use_tls=False, batch_runner=send_runner, device=dev),
+        receiver_kw=dict(dedup=True, cdc_params=PARAMS, use_tls=False, batch_runner=recv_runner, decode_workers=2, device=dev),
+        n_read=2, n_send=2,
+    )
+    pair.start()
+    try:
+        pair.submit([
+            ChunkRequest(chunk=Chunk(src_key=str(s), dest_key=str(d), chunk_id=f"{i:032x}", chunk_length_bytes=n, file_offset_bytes=0))
+            for i, (s, d, n) in enumerate(files)
+        ])
+        assert len(pair.wait_written(len(files), timeout=60.0)) == len(files), pair.errors()
+        verify = pair.receiver.processor.verify_counters()
+    finally:
+        pair.stop()
+    for (_, dest, _), data in zip(files, datas):
+        assert dest.read_bytes() == data
+    assert verify["verify_batched"] == verify["verify_total"] == len(files)
+    for runner in (send_runner, recv_runner):
+        counts = runner.fused.launch_counts()
+        assert counts.get("gear_compact", 0) > 0 and counts.get("segment_fp", 0) > 0, counts
+

@@ -322,7 +322,10 @@ def test_entry_points_refuse_cuda_without_a_card():
 # ---- import hygiene ----
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """Every port module imports, the slices' entry points run, and a
+    plaintext port sender -> receiver pair lands a file, with neither jax, the
+    JAX package, ``requests`` nor ``cryptography`` imported."""
     code = (
         "import pkgutil, importlib, sys, skyplane_tpu_torch\n"
         "for m in pkgutil.walk_packages(skyplane_tpu_torch.__path__, 'skyplane_tpu_torch.'):\n"
@@ -342,11 +345,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert lz.decompress(lz.compress(b'abc' * 100)) == b'abc' * 100\n"
         "assert not lz4ref.available() or lz4ref.decompress(lz4ref.compress(b'abc'), 3) == b'abc'\n"
         "assert 'skyplane_tpu_torch.entry' in sys.modules\n"
-        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.') or n == 'skyplane_tpu' or n.startswith('skyplane_tpu.'))\n"
+        "from pathlib import Path\n"
+        "from skyplane_tpu_torch.chunk import Chunk, ChunkRequest\n"
+        "from skyplane_tpu_torch.gateway.loopback import LoopbackPair\n"
+        "root = Path(sys.argv[1])\n"
+        "data = x.tobytes() * 40\n"
+        "(root / 'src.bin').write_bytes(data)\n"
+        "pair = LoopbackPair(root / 'gw', sender_kw=dict(codec_name='tpu', dedup=True, use_tls=False, device='cpu'),\n"
+        "                    receiver_kw=dict(dedup=True, use_tls=False, device='cpu'), n_read=1, n_send=1)\n"
+        "pair.start()\n"
+        "pair.submit([ChunkRequest(chunk=Chunk(src_key=str(root / 'src.bin'), dest_key=str(root / 'dst.bin'),\n"
+        "             chunk_id='ab' * 16, chunk_length_bytes=len(data), file_offset_bytes=0))])\n"
+        "assert len(pair.wait_written(1, 30.0)) == 1, pair.errors()\n"
+        "pair.stop()\n"
+        "assert (root / 'dst.bin').read_bytes() == data\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'skyplane_tpu', 'requests', 'cryptography'))\n"
         "print(len([n for n in sys.modules if n.startswith('skyplane_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
 
 
