@@ -60,23 +60,33 @@ Phases (any failure exits non-zero before the final ``ok`` line):
    a device-to-device copy of the same bytes, and at the other blocks; then
    20 steps under torch.profiler: the device's busy share of their wall
    time.
-6. The gateway's wire data plane (slice 7), wired as the daemon wires a
-   direct program (``skyplane_tpu_torch.gateway.loopback.LoopbackPair``):
-   the corpus written as 24 source files -> ``GatewayReadLocalOperator`` (8
-   workers) -> ``GatewaySenderOperator`` (16 workers, window 16, codec
-   ``tpu``, dedup, plaintext, its own ``DeviceBatchRunner(max_batch=8)``)
-   -> loopback TCP -> ``GatewayReceiver`` (dedup, its own runner,
-   ``SKYPLANE_TPU_PARANOID_VERIFY=1``: recipe chunks re-fingerprinted on the
-   card) -> ``GatewayWaitReceiverOperator`` -> ``GatewayWriteLocalOperator``
-   -> 24 destination files under ``build/``. Two rounds with fresh operators,
-   runners and index, launch counts zeroed just before the first and read
-   just after the second; then a third round under torch.profiler (the
-   device's busy share). Each round prints Gbps of raw bytes from the first
-   dispatch to the last file written, wire bytes, wire reduction, REF
-   segments, NACKs and resends, each runner's K-AB and K-C launches and the
-   receiver's ``verify_counters()``, and phase 3 (b)'s Gbps beside them. It
-   fails if a destination file differs from its source, an operator fails,
-   a runner launches no kernel, or ``verify_batched`` is 0.
+6. The gateway through two port gateway daemons (slices 7 and 8):
+   ``GatewayDaemon(device="cuda")`` twice, in process on threads (control
+   port 0 on 127.0.0.1, plaintext control and data), each building its own
+   ``DeviceBatchRunner(max_batch=8)``. The source's program is
+   ``read_local`` (8 workers) -> ``send`` (16 connections, window 16, codec
+   ``tpu``, dedup); the destination's is ``receive`` (dedup) ->
+   ``write_local``. The corpus is written as 24 source files and dispatched
+   with one ``POST /api/v1/chunk_requests`` to the source; the round ends
+   when the destination's ``/api/v1/chunk_status_log`` reports all 24
+   complete, and every destination file is held against its source. Each
+   round starts fresh daemons (fresh runners, index and segment store). Two
+   rounds with ``SKYPLANE_TPU_PARANOID_VERIFY=1`` (recipe chunks
+   re-fingerprinted on the card through the destination's runner), launch
+   counts zeroed just before the first and read just after the second; a
+   witness round at the daemon's default (paranoid verification off); a
+   traced round under torch.profiler (the device's busy share). Each round
+   prints Gbps of raw bytes from the POST to the last completion, wire
+   bytes, wire reduction, REF share, NACKs and resends, ack lag, each
+   daemon runner's K-AB and K-C launches and ``phase.first_compile``
+   interval (from ``GET /api/v1/events``), the destination's
+   ``verify_counters()`` and the host split by stage; then the paranoid
+   rounds beside the witness round (Gbps, ack lag, REF share, the recipe
+   restore's wall) and phase 3 (b)'s Gbps. It fails if a destination file
+   differs from its source, a daemon reports an error, a runner that should
+   work launches no K-AB or K-C (the destination's only in paranoid rounds),
+   a runner that launched journals no ``phase.first_compile``, or
+   ``verify_batched`` is not 24 of 24 in a paranoid round.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 line describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -738,32 +748,132 @@ class GatewaySplit(HostSplit):
 
 
 GATEWAY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_gateway"  # gitignored, inside the checkout
+FIRST_COMPILE = "phase.first_compile"
 
 
-def gateway_round(dev, files, chunks, params, card: str, label: str, trace: bool = False) -> float:
-    """One round of phase 6 with fresh operators, runners and index: submit
-    the 24 chunks, wait for the 24 destination files, check each against its
-    source. Returns the round's Gbps."""
+class DaemonPair:
+    """Phase 6's two port gateway daemons, in process on threads as
+    ``tests/integration/harness.py`` starts them (control port 0 on
+    127.0.0.1, plaintext control and data, each building its own
+    ``DeviceBatchRunner`` on ``dev``): the source runs ``read_local`` (8) ->
+    ``send`` (16 connections, codec ``tpu``, dedup, window 16) and the
+    destination ``receive`` (dedup) -> ``write_local``. Driven through the
+    control API with the port's standard-library client."""
+
+    def __init__(self, dev, params, root: Path):
+        from skyplane_tpu_torch.gateway.control_auth import control_session
+
+        self.session = control_session()
+        recv = {"op_type": "receive", "handle": "recv", "dedup": True,
+                "children": [{"op_type": "write_local", "handle": "write", "children": []}]}
+        self.dst = self._start(dev, params, root, "gw_dst", recv, {})
+        send = {"op_type": "send", "handle": "send", "target_gateway_id": "gw_dst", "region": "local:local",
+                "num_connections": WORKERS, "compress": "tpu", "dedup": True, "encrypt": False, "window": 16,
+                "children": []}
+        read = {"op_type": "read_local", "handle": "read", "num_connections": 8, "children": [send]}
+        info = {"gw_dst": {"public_ip": "127.0.0.1", "control_port": self.dst[0].api.port}}
+        self.src = self._start(dev, params, root, "gw_src", read, info)
+
+    def _start(self, dev, params, root: Path, gateway_id: str, op: dict, info: dict):
+        from skyplane_tpu_torch.gateway.gateway_daemon import GatewayDaemon
+        from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
+
+        # a CPU daemon builds no runner: a rehearsal on the CPU hands it one
+        runner = (DeviceBatchRunner(cdc_params=params, max_batch=MAX_BATCH, device=dev, gateway_id=gateway_id)
+                  if dev.type == "cpu" else None)
+        daemon = GatewayDaemon(
+            "local:local", str(root / gateway_id), {"plan": [{"partitions": ["default"], "value": [op]}]}, info,
+            gateway_id, control_port=0, bind_host="127.0.0.1", use_tls=False, cdc_params=params, device=dev,
+            batch_runner=runner,
+        )
+        if daemon.batch_runner is None:
+            raise AssertionError(f"phase 6: daemon {gateway_id} on {dev} built no batch runner")
+        thread = threading.Thread(target=daemon.run, name=f"daemon-{gateway_id}", daemon=True)
+        thread.start()
+        deadline = time.monotonic() + 30
+        while True:
+            try:
+                self.get(daemon, "status")
+                return daemon, thread
+            except Exception:  # noqa: BLE001 — the control API is not up yet
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.02)
+
+    def url(self, daemon, route: str) -> str:
+        return f"http://127.0.0.1:{daemon.api.port}/api/v1/{route}"
+
+    def get(self, daemon, route: str, **kw):
+        resp = self.session.get(self.url(daemon, route), timeout=30, **kw)
+        resp.raise_for_status()
+        return resp.json()
+
+    def dispatch(self, reqs) -> None:
+        self.session.post(self.url(self.src[0], "chunk_requests"), json=[r.as_dict() for r in reqs], timeout=60).raise_for_status()
+
+    def wait_complete(self, ids, timeout: float) -> None:
+        """Poll the destination's ``/chunk_status_log`` every 10 ms until every
+        id is complete; raise on an error at either daemon or the timeout."""
+        pending, deadline, n = set(ids), time.monotonic() + timeout, 0
+        while pending:
+            status = self.get(self.dst[0], "chunk_status_log", params={"chunk_ids": ",".join(sorted(pending))})["chunk_status"]
+            pending = {c for c in pending if status.get(c) != "complete"}
+            n += 1
+            if pending and n % 20 == 0:
+                for daemon, _ in (self.src, self.dst):
+                    errs = self.get(daemon, "errors")["errors"]
+                    if errs:
+                        raise AssertionError(f"phase 6: daemon {daemon.gateway_id} failed: {errs[0][:2000]}")
+            if pending and time.monotonic() > deadline:
+                raise AssertionError(f"phase 6: {len(pending)} of {len(ids)} chunks incomplete after {timeout:.0f} s")
+            if pending:
+                time.sleep(0.01)
+
+    def first_compile(self, daemon, since: int):
+        """The daemon runner's ``phase.first_compile`` interval in seconds from
+        ``GET /api/v1/events`` (None when it journaled none)."""
+        events = self.get(daemon, "events", params={"since": since})["events"]
+        edges = {e["edge"]: e for e in events if e["kind"] == FIRST_COMPILE and e.get("gateway") == daemon.gateway_id}
+        if set(edges) != {"start", "end"}:
+            return None
+        return edges["end"]["mono"] - edges["start"]["mono"], edges["start"]["bucket"], edges["start"]["rows"]
+
+    def stop(self) -> None:
+        for daemon, _ in (self.src, self.dst):
+            daemon.stop()
+        for daemon, thread in (self.src, self.dst):
+            thread.join(timeout=30)
+            if thread.is_alive():
+                raise AssertionError(f"phase 6: daemon {daemon.gateway_id} did not stop")
+
+
+def gateway_round(dev, files, chunks, params, card: str, label: str, paranoid: bool, trace: bool = False) -> dict:
+    """One round of phase 6 through two fresh port daemons (fresh runners and
+    index): POST the 24 chunk requests to the source, wait until the
+    destination reports all 24 complete, check each file against its source.
+    ``paranoid`` sets ``SKYPLANE_TPU_PARANOID_VERIFY=1`` for the daemons (off
+    is the daemon's default: the witness round). Returns the round's numbers."""
     from skyplane_tpu_torch.chunk import Chunk, ChunkRequest
-    from skyplane_tpu_torch.gateway.loopback import LoopbackPair
-    from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
+    from skyplane_tpu_torch.obs import get_recorder
 
     for _, dest in files:
         dest.unlink(missing_ok=True)
-    root = GATEWAY_DIR / f"round_{label}"
-    send_runner = DeviceBatchRunner(cdc_params=params, max_batch=MAX_BATCH, device=dev)
-    recv_runner = DeviceBatchRunner(cdc_params=params, max_batch=MAX_BATCH, device=dev)
-    pair = LoopbackPair(
-        root,
-        sender_kw=dict(codec_name="tpu", dedup=True, cdc_params=params, use_tls=False, batch_runner=send_runner,
-                       window=16, device=dev),
-        receiver_kw=dict(dedup=True, cdc_params=params, use_tls=False, batch_runner=recv_runner, device=dev),
-        n_read=8, n_send=WORKERS,
-    )
+    saved = os.environ.pop("SKYPLANE_TPU_PARANOID_VERIFY", None)
+    if paranoid:
+        os.environ["SKYPLANE_TPU_PARANOID_VERIFY"] = "1"
+    try:
+        since = get_recorder().seq()
+        pair = DaemonPair(dev, params, GATEWAY_DIR / f"round_{label}")
+    finally:
+        os.environ.pop("SKYPLANE_TPU_PARANOID_VERIFY", None)
+        if saved is not None:
+            os.environ["SKYPLANE_TPU_PARANOID_VERIFY"] = saved
+    src, dst = pair.src[0], pair.dst[0]
     reqs = [
-        ChunkRequest(chunk=Chunk(src_key=str(src), dest_key=str(dest), chunk_id=uuid.uuid4().hex,
-                                 chunk_length_bytes=len(c), file_offset_bytes=0))
-        for (src, dest), c in zip(files, chunks)
+        ChunkRequest(chunk=Chunk(src_key=str(s), dest_key=str(d), chunk_id=uuid.uuid4().hex,
+                                 chunk_length_bytes=len(c), file_offset_bytes=0),
+                     src_region="local:local", dst_region="local:local", src_type="local", dst_type="local")
+        for (s, d), c in zip(files, chunks)
     ]
     split = None if trace else GatewaySplit()
     if split is not None:
@@ -774,24 +884,20 @@ def gateway_round(dev, files, chunks, params, card: str, label: str, trace: bool
 
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         prof.start()
-    pair.start()
     try:
         cpu0, t0 = time.process_time(), time.perf_counter()
-        pair.submit(reqs)
-        written = pair.wait_written(len(reqs), timeout=300.0)
+        pair.dispatch(reqs)
+        pair.wait_complete([r.chunk.chunk_id for r in reqs], timeout=300.0)
         dt, cpu_s = time.perf_counter() - t0, time.process_time() - cpu0
-        errors = pair.errors()
-        if pair.error_event.is_set() or errors:
-            raise AssertionError(f"phase 6 ({label}): an operator failed: {errors}")
-        if len(written) != len(reqs):
-            raise AssertionError(f"phase 6 ({label}): {len(written)} of {len(reqs)} chunks written in 300 s")
         for i, ((_, dest), c) in enumerate(zip(files, chunks)):
             if hashlib.blake2b(dest.read_bytes(), digest_size=16).digest() != hashlib.blake2b(c, digest_size=16).digest():
                 raise AssertionError(f"phase 6 ({label}): destination file {i} differs from its source")
-        stats = pair.sender.datapath_counters()
-        wire = pair.sender.wire_counters()
-        decode = pair.receiver.decode_counters()
-        verify = pair.receiver.processor.verify_counters()
+        sender = next(op for op in src.operators if type(op).__name__ == "GatewaySenderOperator")
+        stats = sender.datapath_counters()
+        wire = sender.wire_counters()
+        decode = dst.receiver.decode_counters()
+        verify = dst.receiver.processor.verify_counters()
+        compiles = {d.gateway_id: pair.first_compile(d, since) for d in (src, dst)}
     finally:
         if prof is not None:
             sync(dev)
@@ -801,26 +907,39 @@ def gateway_round(dev, files, chunks, params, card: str, label: str, trace: bool
         pair.stop()
     raw_total = sum(len(c) for c in chunks)
     gbps = raw_total * 8 / dt / 1e9
-    launches = {"sender": send_runner.fused.launch_counts(), "receiver": recv_runner.fused.launch_counts()}
-    log(f"phase 6 ({label}) on {card}: {len(reqs)} of {len(reqs)} files written byte-identical, {raw_total} bytes in "
-        f"{dt:.3f} s = {gbps:.3f} Gbps from the first dispatch to the last file written; wire bytes {stats['wire_bytes']}, "
-        f"wire reduction {raw_total / stats['wire_bytes']:.3f}x, REF segments {stats['ref_segments']} of {stats['segments']}; "
-        f"NACKs {wire['nacks_reaped']}, resends {wire['frames_sent'] - len(reqs)}, stream resets {wire['stream_resets']}, "
-        f"streams {wire['streams_open']}; runner launches {launches}; receiver verify_counters {verify}; "
-        f"process CPU {cpu_s:.3f} s ({cpu_s / dt:.2f} cores)")
+    launches = {d.gateway_id: d.batch_runner.fused.launch_counts() for d in (src, dst)}
+    ref_share = stats["ref_segments"] / stats["segments"] if stats["segments"] else 0.0
+    log(f"phase 6 ({label}, paranoid verify {'on' if paranoid else 'off: the daemon default'}) on {card}: two port "
+        f"daemons, {len(reqs)} of {len(reqs)} files written byte-identical, {raw_total} bytes in {dt:.3f} s = "
+        f"{gbps:.3f} Gbps from the POST to the last completion; wire bytes {stats['wire_bytes']}, wire reduction "
+        f"{raw_total / stats['wire_bytes']:.3f}x, REF segments {stats['ref_segments']} of {stats['segments']} "
+        f"({ref_share:.2%}); NACKs {wire['nacks_reaped']}, resends {wire['frames_sent'] - len(reqs)}, stream resets "
+        f"{wire['stream_resets']}, streams {wire['streams_open']}; runner launches {launches}; receiver "
+        f"verify_counters {verify}; process CPU {cpu_s:.3f} s ({cpu_s / dt:.2f} cores)")
+    for gid, fc in compiles.items():
+        log(f"phase 6 ({label}): daemon {gid}: phase.first_compile "
+            + (f"{fc[0] * 1e3:.3f} ms (bucket {fc[1]}, rows {fc[2]})" if fc else "not journaled"))
     if split is not None:
         log(f"phase 6 ({label}): " + split.summary())
-    log(f"phase 6 ({label}): sender wire: ack lag {wire['ack_lag_ns'] / 1e9:.3f} s summed over frames, wire stall "
+    log(f"phase 6 ({label}): sender wire: ack lag {wire['ack_lag_ns'] / 1e9:.3f} s summed over frames "
+        f"({wire['ack_lag_ns'] / 1e9 / max(wire['frames_sent'], 1):.3f} s a frame), wire stall "
         f"{wire['wire_stall_ns'] / 1e9:.3f} s, frames pipelined {wire['frames_pipelined']}; sender device wait "
         f"{stats['device_wait_ns'] / 1e9:.3f} s summed over workers, batch windows {stats['batch_windows']} "
         f"(rows {stats['batch_rows']}); receiver: decode {decode['decode_ns'] / 1e9:.3f} s summed over "
         f"{decode['decode_workers']} decode workers, REF waits {decode['store_ref_wait_ns'] / 1e9:.3f} s, "
         f"store hits {decode['store_mem_hits']}")
-    for side, counts in launches.items():
+    # the destination's runner works only for paranoid verification
+    for d in ((src, dst) if paranoid else (src,)):
+        counts = launches[d.gateway_id]
         if any(counts.get(k, 0) == 0 for k in SLICE1):
-            raise AssertionError(f"phase 6 ({label}): the {side}'s runner launched no {SLICE1}: {counts}")
-    if verify["verify_batched"] == 0:
-        raise AssertionError(f"phase 6 ({label}): no recipe chunk was re-fingerprinted through the receiver's runner: {verify}")
+            raise AssertionError(f"phase 6 ({label}): daemon {d.gateway_id}'s runner launched no {SLICE1}: {counts}")
+    for d in (src, dst):
+        if any(launches[d.gateway_id].values()) and compiles[d.gateway_id] is None:
+            raise AssertionError(f"phase 6 ({label}): daemon {d.gateway_id}'s runner launched kernels but "
+                                 "journaled no phase.first_compile")
+    if paranoid and verify["verify_batched"] != len(reqs):
+        raise AssertionError(f"phase 6 ({label}): {verify['verify_batched']} of {len(reqs)} recipe chunks "
+                             f"re-fingerprinted through the destination's runner: {verify}")
     if prof is not None:
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if not events:
@@ -829,18 +948,17 @@ def gateway_round(dev, files, chunks, params, card: str, label: str, trace: bool
         log(f"phase 6 ({label}) on {card}: traced round: wall {dt:.3f} s, device busy {busy_us / 1e3:.3f} ms = "
             f"{busy_us / 1e6 / dt:.2%} of wall (idle {1 - busy_us / 1e6 / dt:.2%}); device time by name (ms): "
             + "; ".join(f"{name[:60]} {us / 1e3:.3f}" for name, us in top))
-    return gbps
+    return {"gbps": gbps, "ack_lag_s": wire["ack_lag_ns"] / 1e9, "ref_share": ref_share,
+            "restore_wall_s": split.wall_ns["recipe_restore"] / 1e9 if split is not None else None}
 
 
 def gateway_phase(dev, chunks, params, card: str, main_gbps) -> None:
-    """Phase 6: the gateway's wire data plane from 24 source files to 24
-    destination files (see the module docstring)."""
+    """Phase 6: the gateway from 24 source files to 24 destination files
+    through two port daemons (see the module docstring)."""
     from skyplane_tpu_torch.native import datapath as native_dp
     from skyplane_tpu_torch.ops import kernels
 
     native_dp._available = True  # the main path's configuration, pass (b)
-    paranoid = os.environ.get("SKYPLANE_TPU_PARANOID_VERIFY")
-    os.environ["SKYPLANE_TPU_PARANOID_VERIFY"] = "1"
     shutil.rmtree(GATEWAY_DIR, ignore_errors=True)
     (GATEWAY_DIR / "src").mkdir(parents=True)
     (GATEWAY_DIR / "dst").mkdir(parents=True)
@@ -852,19 +970,21 @@ def gateway_phase(dev, chunks, params, card: str, main_gbps) -> None:
     try:
         sync(dev)
         kernels.reset_launch_counts()
-        gbps = [gateway_round(dev, files, chunks, params, card, label) for label in ("1", "2")]
+        rounds = [gateway_round(dev, files, chunks, params, card, label, paranoid=True) for label in ("1", "2")]
         sync(dev)
         launches = kernels.launch_counts()
-        gateway_round(dev, files, chunks, params, card, "traced", trace=True)
+        witness = gateway_round(dev, files, chunks, params, card, "witness", paranoid=False)
+        gateway_round(dev, files, chunks, params, card, "traced", paranoid=True, trace=True)
     finally:
-        if paranoid is None:
-            os.environ.pop("SKYPLANE_TPU_PARANOID_VERIFY", None)
-        else:
-            os.environ["SKYPLANE_TPU_PARANOID_VERIFY"] = paranoid
         shutil.rmtree(GATEWAY_DIR, ignore_errors=True)
-    log(f"phase 6 on {card}: gateway Gbps over two rounds: " + ", ".join(f"{g:.3f}" for g in gbps)
+    def fmt(r: dict) -> str:
+        return (f"{r['gbps']:.3f} Gbps, ack lag {r['ack_lag_s']:.3f} s, REF share {r['ref_share']:.2%}, "
+                f"restore wall {r['restore_wall_s']:.3f} s")
+
+    log(f"phase 6 on {card}: paranoid rounds: " + "; ".join(fmt(r) for r in rounds)
+        + f"; witness round at the daemon's default (paranoid verify off): {fmt(witness)}"
         + "; phase 3 (b), the sender path alone, in this call: " + ", ".join(f"{g:.3f}" for g in main_gbps)
-        + f"; process-wide kernel launches of the two rounds {launches}")
+        + f"; process-wide kernel launches of the two paranoid rounds {launches}")
     if any(launches[k] == 0 for k in SLICE1):
         raise AssertionError(f"a kernel of the gateway path never launched: {launches}")
 

@@ -10,7 +10,9 @@ from the reference:
   * Workers are threads (the byte pump holds the GIL only in socket/file
     syscalls, and torch releases it while it waits on the card);
     ``n_processes`` semantics from the reference map to ``n_workers``.
-  * This slice has no daemon or control API yet (the next slice):
-    ``loopback.LoopbackControl`` stands in for the destination's control
-    API in tests and ``chip_smoke.py``.
+  * ``gateway_daemon.GatewayDaemon`` builds these operators from a gateway
+    program on an explicit ``device`` and serves the control API
+    (``gateway_daemon_api.py``); ``python -m
+    skyplane_tpu_torch.gateway.gateway_daemon`` starts one, pinned by
+    ``SKYPLANE_GATEWAY_DEVICE``.
 """

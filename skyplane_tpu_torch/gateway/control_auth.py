@@ -11,9 +11,10 @@ info file (reference analog: SSH tunnels, skyplane compute/server.py:148-161).
 
 The port's client is the standard library's (``urllib.request``), not
 ``requests``: a GPU gateway host need not have ``requests`` installed. It
-keeps the surface the gateway modules use — ``post(url, json=, timeout=)``,
-``get(url, params=, timeout=)``, ``raise_for_status()``, ``json()``,
-``text``, ``status_code``, ``ok`` — and raises one class,
+keeps the surface the gateway modules use — ``post(url, json=|data=,
+timeout=)``, ``get(url, params=, headers=, timeout=)``, ``delete(url)``,
+``raise_for_status()``, ``json()``, ``text``, ``content``, ``status_code``,
+``ok`` — and raises one class,
 :class:`ControlRequestError`, where the JAX package catches
 ``requests.RequestException``.
 """
@@ -38,6 +39,11 @@ INFO_META_KEY = "_meta"
 class ControlRequestError(Exception):
     """A control-API call failed: no connection, a timeout, or (from
     ``raise_for_status``) an HTTP error status."""
+
+
+class ControlTimeout(ControlRequestError):
+    """A control-API call timed out (where the JAX package catches
+    ``requests.exceptions.Timeout``)."""
 
 
 def generate_api_token() -> str:
@@ -92,14 +98,20 @@ class ControlSession:
             urllib.request.ProxyHandler({}), urllib.request.HTTPSHandler(context=ctx)
         )
 
-    def request(self, method: str, url: str, *, json=None, params=None, timeout=None) -> ControlResponse:
+    def request(
+        self, method: str, url: str, *, json=None, data=None, params=None, headers=None, timeout=None
+    ) -> ControlResponse:
+        """One call; ``json`` sends a JSON body, ``data`` raw bytes."""
         if params:
             url = f"{url}{'&' if '?' in url else '?'}{urllib.parse.urlencode(params)}"
         hdrs = dict(self.headers)
-        data = None
+        if headers:
+            hdrs.update(headers)
         if json is not None:
             data = _json.dumps(json).encode()
             hdrs["Content-Type"] = "application/json"
+        elif data is not None:
+            hdrs.setdefault("Content-Type", "application/octet-stream")
         req = urllib.request.Request(url, data=data, headers=hdrs, method=method)
         # NO retry here, deliberately: profile/socket/* GETs DRAIN server-side
         # queues (a transparent re-issue after a dropped response would lose
@@ -117,13 +129,17 @@ class ControlSession:
                 body = b""
             return ControlResponse(e.code, body, url)
         except (urllib.error.URLError, http.client.HTTPException, OSError, ValueError) as e:
-            raise ControlRequestError(f"{method} {url} failed: {e}") from e
+            timed_out = isinstance(e, TimeoutError) or isinstance(getattr(e, "reason", None), TimeoutError)
+            raise (ControlTimeout if timed_out else ControlRequestError)(f"{method} {url} failed: {e}") from e
 
     def get(self, url: str, **kw) -> ControlResponse:
         return self.request("GET", url, **kw)
 
     def post(self, url: str, **kw) -> ControlResponse:
         return self.request("POST", url, **kw)
+
+    def delete(self, url: str, **kw) -> ControlResponse:
+        return self.request("DELETE", url, **kw)
 
 
 def control_session(api_token: Optional[str] = None) -> ControlSession:

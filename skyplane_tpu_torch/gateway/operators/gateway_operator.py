@@ -14,8 +14,7 @@ socket. Control-API calls go through the standard-library client of
 imported unless TLS certificates or E2EE are asked for.
 
 Not in this slice: the object-store operators (they wait for ``obj_store/``,
-ROADMAP queue 1 item 7) and the daemon that builds these operators from a
-gateway program (the next slice).
+ROADMAP queue 1 item 7; the daemon refuses their op types).
 """
 
 from __future__ import annotations
@@ -57,13 +56,9 @@ from skyplane_tpu_torch.gateway.gateway_queue import GatewayQueue
 from skyplane_tpu_torch.ops.cdc import CDCParams
 from skyplane_tpu_torch.ops.dedup import SenderDedupIndex
 from skyplane_tpu_torch.ops.pipeline import DataPathProcessor
+from skyplane_tpu_torch.tenancy.scheduler import RES_CHUNK_SLOTS, RES_WIRE_BYTES
 from skyplane_tpu_torch.utils.logger import logger
 from skyplane_tpu_torch.utils.retry import RetryPolicy, retry_backoff
-
-#: the fair-share scheduler's resource names (tenancy/scheduler.py in the JAX
-#: package; the scheduler itself comes with the tenancy slice and is passed in)
-RES_WIRE_BYTES = "wire_bytes"
-RES_CHUNK_SLOTS = "chunk_slots"
 
 #: fair-share token releases retry transient scheduler errors (the
 #: sched.release fault point): a dropped release would leak the tenant's

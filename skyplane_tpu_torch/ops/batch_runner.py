@@ -97,8 +97,13 @@ class DeviceBatchRunner:
         max_wait_ms: float = 3.0,
         pool: Optional[BufferPool] = None,
         device="cuda",
+        gateway_id: Optional[str] = None,
     ):
         self.cdc_params = cdc_params
+        # names this runner's gateway on its journaled phases, so the first
+        # compiles of two daemons in one process (one flight recorder) are
+        # told apart; None leaves the field out, as the JAX runner does
+        self.gateway_id = gateway_id
         self.max_batch = max_batch
         if not math.isfinite(max_wait_ms) or max_wait_ms < 0:  # NaN/inf/negative would stall the leader
             max_wait_ms = 3.0
@@ -113,6 +118,10 @@ class DeviceBatchRunner:
         self.pool = pool if pool is not None else BufferPool()
         self._counters = {"batch_windows": 0, "batch_rows": 0, "batch_padded_rows": 0, "spmd_batches": 0, "spmd_check_batches": 0}
         self._stage_failures: Dict[int, int] = {}
+        # the first window pays the kernels' lazy build (nvcc at first use)
+        # and first launch: journal it as phase.first_compile so the job
+        # waterfall can name it (obs/timeline.py)
+        self._saw_first_window = False
         self._zero_rows: Dict[int, np.ndarray] = {}  # bucket -> shared read-only zero row
         self._dev_zero_rows: Dict[int, torch.Tensor] = {}  # bucket -> zero row on the device
         self.fused = FusedCDCFP(cdc_params, pool=self.pool, device=device)
@@ -229,6 +238,15 @@ class DeviceBatchRunner:
         bucket = len(entries[0].arr)
         with self._lock:
             self._in_flight[bucket] = self._in_flight.get(bucket, 0) + 1
+            first_window = not self._saw_first_window
+            self._saw_first_window = True
+        end_first_compile = None
+        if first_window:
+            from skyplane_tpu_torch.obs.events import PH_FIRST_COMPILE
+            from skyplane_tpu_torch.obs.timeline import phase_begin
+
+            fields = {"gateway": self.gateway_id} if self.gateway_id else {}
+            end_first_compile = phase_begin(PH_FIRST_COMPILE, bucket=bucket, rows=len(entries), **fields)
         n_pad_rows = 0
         try:
             rows = [e.arr for e in entries]
@@ -258,6 +276,8 @@ class DeviceBatchRunner:
                 e.error = err
             self._release_pooled(entries)
         finally:
+            if end_first_compile is not None:
+                end_first_compile()
             with self._lock:
                 self._in_flight[bucket] -= 1
                 self._counters["batch_windows"] += 1

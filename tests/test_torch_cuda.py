@@ -394,11 +394,11 @@ def test_entry_twin_on_card(dev):
 
 def test_gateway_on_card_matches_cpu(dev, tmp_path, monkeypatch):
     """The port's serial sender frames the same bytes with its runner on the
-    card as on the CPU, and a ``LoopbackPair`` with both runners on the card
-    (paranoid verify on) lands every file byte-identical, launching K-AB and
-    K-C on each side."""
-    from skyplane_tpu_torch.chunk import Chunk, ChunkRequest
-    from skyplane_tpu_torch.gateway.loopback import LoopbackPair
+    card as on the CPU, and a pair of port daemons on the card, each building
+    its own runner (paranoid verify on), lands every file byte-identical,
+    launching K-AB and K-C on each daemon's runner and journaling each
+    runner's ``phase.first_compile``."""
+    from skyplane_tpu_torch.obs.events import PH_FIRST_COMPILE
     from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
 
     # loaded by path: the card's machine has another top-level ``tests`` package
@@ -419,29 +419,22 @@ def test_gateway_on_card_matches_cpu(dev, tmp_path, monkeypatch):
     assert frames[0] == frames[1], "the card's frames differ from the CPU's"
 
     monkeypatch.setenv("SKYPLANE_TPU_PARANOID_VERIFY", "1")
+    monkeypatch.setenv("SKYPLANE_TPU_DECODE_WORKERS", "2")
     files = write_sources(tmp_path / "pair", datas)
-    send_runner = DeviceBatchRunner(cdc_params=PARAMS, max_batch=8, device=dev)
-    recv_runner = DeviceBatchRunner(cdc_params=PARAMS, max_batch=8, device=dev)
-    pair = LoopbackPair(
-        tmp_path / "pair" / "gw",
-        sender_kw=dict(codec_name="tpu", dedup=True, cdc_params=PARAMS, use_tls=False, batch_runner=send_runner, device=dev),
-        receiver_kw=dict(dedup=True, cdc_params=PARAMS, use_tls=False, batch_runner=recv_runner, decode_workers=2, device=dev),
-        n_read=2, n_send=2,
-    )
-    pair.start()
+    side = {"cdc_params": PARAMS, "device": dev}
+    src, dst = util.make_pair(tmp_path / "pair" / "gw", compress="tpu", dedup=True, src_kw=side, dst_kw=side)
     try:
-        pair.submit([
-            ChunkRequest(chunk=Chunk(src_key=str(s), dest_key=str(d), chunk_id=f"{i:032x}", chunk_length_bytes=n, file_offset_bytes=0))
-            for i, (s, d, n) in enumerate(files)
-        ])
-        assert len(pair.wait_written(len(files), timeout=60.0)) == len(files), pair.errors()
-        verify = pair.receiver.processor.verify_counters()
+        util.wait_complete(dst, util.dispatch(src, files))
+        verify = dst.daemon.receiver.processor.verify_counters()
+        events = src.get("events", params={"since": 0}, timeout=10).json()["events"]
     finally:
-        pair.stop()
+        util.stop_all(src, dst)
     for (_, dest, _), data in zip(files, datas):
         assert dest.read_bytes() == data
     assert verify["verify_batched"] == verify["verify_total"] == len(files)
-    for runner in (send_runner, recv_runner):
-        counts = runner.fused.launch_counts()
+    for gw in (src, dst):
+        counts = gw.daemon.batch_runner.fused.launch_counts()
         assert counts.get("gear_compact", 0) > 0 and counts.get("segment_fp", 0) > 0, counts
+        edges = sorted(e["edge"] for e in events if e["kind"] == PH_FIRST_COMPILE and e.get("gateway") == gw.daemon.gateway_id)
+        assert edges == ["end", "start"], (gw.daemon.gateway_id, edges)
 

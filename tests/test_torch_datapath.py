@@ -323,9 +323,10 @@ def test_entry_points_refuse_cuda_without_a_card():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
-    """Every port module imports, the slices' entry points run, and a
-    plaintext port sender -> receiver pair lands a file, with neither jax, the
-    JAX package, ``requests`` nor ``cryptography`` imported."""
+    """Every port module imports, the slices' entry points run, and two
+    plaintext port daemons (``device="cpu"``) move a file from source to
+    destination, with neither jax, the JAX package, ``requests`` nor
+    ``cryptography`` imported."""
     code = (
         "import pkgutil, importlib, sys, skyplane_tpu_torch\n"
         "for m in pkgutil.walk_packages(skyplane_tpu_torch.__path__, 'skyplane_tpu_torch.'):\n"
@@ -345,19 +346,34 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "assert lz.decompress(lz.compress(b'abc' * 100)) == b'abc' * 100\n"
         "assert not lz4ref.available() or lz4ref.decompress(lz4ref.compress(b'abc'), 3) == b'abc'\n"
         "assert 'skyplane_tpu_torch.entry' in sys.modules\n"
+        "import threading, time\n"
         "from pathlib import Path\n"
         "from skyplane_tpu_torch.chunk import Chunk, ChunkRequest\n"
-        "from skyplane_tpu_torch.gateway.loopback import LoopbackPair\n"
+        "from skyplane_tpu_torch.gateway.control_auth import control_session\n"
+        "from skyplane_tpu_torch.gateway.gateway_daemon import GatewayDaemon\n"
         "root = Path(sys.argv[1])\n"
         "data = x.tobytes() * 40\n"
         "(root / 'src.bin').write_bytes(data)\n"
-        "pair = LoopbackPair(root / 'gw', sender_kw=dict(codec_name='tpu', dedup=True, use_tls=False, device='cpu'),\n"
-        "                    receiver_kw=dict(dedup=True, use_tls=False, device='cpu'), n_read=1, n_send=1)\n"
-        "pair.start()\n"
-        "pair.submit([ChunkRequest(chunk=Chunk(src_key=str(root / 'src.bin'), dest_key=str(root / 'dst.bin'),\n"
-        "             chunk_id='ab' * 16, chunk_length_bytes=len(data), file_offset_bytes=0))])\n"
-        "assert len(pair.wait_written(1, 30.0)) == 1, pair.errors()\n"
-        "pair.stop()\n"
+        "def start(gid, prog, info):\n"
+        "    d = GatewayDaemon('local:local', str(root / gid), {'plan': [{'partitions': ['default'], 'value': [prog]}]}, info,\n"
+        "                      gid, control_port=0, bind_host='127.0.0.1', use_tls=False, device='cpu')\n"
+        "    threading.Thread(target=d.run, daemon=True).start()\n"
+        "    return d\n"
+        "dst = start('gw_dst', {'op_type': 'receive', 'dedup': True, 'children': [{'op_type': 'write_local', 'children': []}]}, {})\n"
+        "src = start('gw_src', {'op_type': 'read_local', 'num_connections': 1, 'children': [{'op_type': 'send',\n"
+        "             'target_gateway_id': 'gw_dst', 'num_connections': 1, 'compress': 'tpu', 'dedup': True, 'children': []}]},\n"
+        "             {'gw_dst': {'public_ip': '127.0.0.1', 'control_port': dst.api.port}})\n"
+        "req = ChunkRequest(chunk=Chunk(src_key=str(root / 'src.bin'), dest_key=str(root / 'dst.bin'),\n"
+        "                   chunk_id='ab' * 16, chunk_length_bytes=len(data), file_offset_bytes=0))\n"
+        "sess = control_session()\n"
+        "sess.post(f'http://127.0.0.1:{src.api.port}/api/v1/chunk_requests', json=[req.as_dict()], timeout=10).raise_for_status()\n"
+        "deadline = time.monotonic() + 30\n"
+        "while time.monotonic() < deadline:\n"
+        "    st = sess.get(f'http://127.0.0.1:{dst.api.port}/api/v1/chunk_status_log', timeout=10).json()['chunk_status']\n"
+        "    if st.get('ab' * 16) == 'complete':\n"
+        "        break\n"
+        "    time.sleep(0.05)\n"
+        "src.stop(); dst.stop()\n"
         "assert (root / 'dst.bin').read_bytes() == data\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'skyplane_tpu', 'requests', 'cryptography'))\n"
         "print(len([n for n in sys.modules if n.startswith('skyplane_tpu_torch')]), bad)\n"

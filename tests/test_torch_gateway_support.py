@@ -11,6 +11,7 @@ from __future__ import annotations
 import importlib
 import json
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -24,7 +25,7 @@ import skyplane_tpu_torch.chunk as tchunk
 import skyplane_tpu_torch.exceptions as texc
 import skyplane_tpu_torch.faults as tfaults
 import skyplane_tpu_torch.ops.dedup as tdedup
-from skyplane_tpu_torch.gateway.control_auth import ControlRequestError, control_session
+from skyplane_tpu_torch.gateway.control_auth import ControlRequestError, ControlTimeout, control_session
 
 # ---- chunk records ----
 
@@ -204,16 +205,23 @@ _COPIED = [
     "obs.critical_path", "obs.timeline", "obs.profiler", "obs.collector", "gateway.gateway_queue",
     "gateway.chunk_store", "gateway.crypto", "gateway.cert", "gateway.control_auth", "ops.dedup",
     "gateway.operators.gateway_receiver", "gateway.operators.sender_wire", "gateway.operators.gateway_operator",
+    "planner.pricing", "gateway.gateway_program", "gateway.preempt", "gateway.gateway_daemon_api",
+    "gateway.gateway_daemon", "tenancy", "tenancy.scheduler", "tenancy.registry", "tenancy.persistent_index",
+    "dedup_fabric", "dedup_fabric.ring", "dedup_fabric.fabric", "dedup_fabric.exchange",
 ]
 # names the port adds (its own control client, the scheduler's resource names,
-# the pump stand-in) or leaves out (the object-store operators, queue 1 item 7)
+# the pump stand-in, the daemon's device and refusals) or leaves out (the
+# object-store operators, queue 1 item 7)
 _ADDED = {
-    "gateway.control_auth": {"ControlRequestError", "ControlResponse", "ControlSession"},
+    "gateway.control_auth": {"ControlRequestError", "ControlResponse", "ControlSession", "ControlTimeout"},
+    "gateway.preempt": {"ControlRequestError", "control_session"},
+    "gateway.gateway_daemon": {"OBJ_STORE_OPS", "resolve_device", "spmd_mode"},
     "gateway.operators.gateway_operator": {"ControlRequestError", "RES_CHUNK_SLOTS", "RES_WIRE_BYTES"},
     "gateway.operators.gateway_receiver": {"_pump_not_ported"},
 }
 _LEFT_OUT = {
     "gateway.operators.gateway_operator": {"GatewayObjStoreReadOperator", "GatewayObjStoreWriteOperator", "_ObjStoreOperator"},
+    "gateway.gateway_daemon": {"GatewayObjStoreReadOperator", "GatewayObjStoreWriteOperator"},
 }
 
 
@@ -277,3 +285,54 @@ def test_control_session_keeps_the_surface_the_gateway_uses():
         server.server_close()
     with pytest.raises(ControlRequestError):
         control_session().post(f"{base}/api/v1/servers", json={}, timeout=2)
+
+
+def test_pump_counter_schema_equals_the_reference():
+    from skyplane_tpu.gateway import pump as ref_pump
+    from skyplane_tpu_torch.gateway import pump as port_pump
+
+    assert port_pump.PUMP_COUNTER_ZERO == ref_pump.PUMP_COUNTER_ZERO
+    assert not port_pump.is_pump_sender(object())
+
+
+class _Raw(BaseHTTPRequestHandler):
+    def log_message(self, *args):
+        pass
+
+    def _reply(self, obj):
+        data = json.dumps(obj).encode()
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def do_POST(self):
+        n = int(self.headers.get("Content-Length") or 0)
+        self._reply({"body": self.rfile.read(n).hex(), "type": self.headers.get("Content-Type")})
+
+    def do_DELETE(self):
+        self._reply({"deleted": self.path, "flavor": self.headers.get("Metadata-Flavor")})
+
+    def do_GET(self):
+        time.sleep(1.0)  # past the caller's timeout, which has closed the connection
+        self.close_connection = True
+
+
+def test_control_session_sends_raw_bodies_deletes_and_times_out():
+    """The calls the daemon slice adds: a raw body (the fabric's write-through
+    push), DELETE (job release), extra headers (the metadata probes), and a
+    timeout told apart from other failures (the fabric's peer-fetch counters)."""
+    server = ThreadingHTTPServer(("127.0.0.1", 0), _Raw)
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        s = control_session()
+        assert s.post(f"{base}/seg", data=b"\x00\xff", timeout=5).json() == {"body": "00ff", "type": "application/octet-stream"}
+        r = s.delete(f"{base}/api/v1/jobs/j1", headers={"Metadata-Flavor": "Google"}, timeout=5)
+        assert r.json() == {"deleted": "/api/v1/jobs/j1", "flavor": "Google"}
+        with pytest.raises(ControlTimeout):
+            s.get(f"{base}/slow", timeout=0.2)
+    finally:
+        server.shutdown()
+        server.server_close()

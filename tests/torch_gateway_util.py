@@ -4,6 +4,9 @@ Each helper takes ``pkg``, ``"port"`` or ``"ref"``, and builds the same thing
 from ``skyplane_tpu_torch`` (on the CPU) or from the JAX package, so one test
 body drives both and compares their bytes.
 
+``start_gateway`` and ``make_pair`` run either package's ``GatewayDaemon`` in
+this process, talked to through the port's standard-library control client.
+
 ``AckServer`` is a plain-TCP receiver double (the twin of the one in
 ``tests/unit/test_sender_pipeline.py``): it parses sender frames, logs
 ``(chunk_id, header bytes, payload)`` in arrival order, and answers per a
@@ -236,29 +239,159 @@ def recipe_kinds(payload: bytes):
     return kinds
 
 
-def cross_pair(src: str, dst: str, root, *, sender_kw: dict, receiver_kw: dict):
-    """A started direct program across two packages: ``src`` ("port" or "ref")
-    gateway operators read local files and send; ``dst`` operators receive,
-    land and write local files. It is the port's ``LoopbackPair`` (the wiring
-    ``chip_smoke.py`` drives) with each side's classes from its own package."""
-    from skyplane_tpu_torch.gateway.loopback import LoopbackPair
+# ---- in-process daemons of either package (the twin of tests/integration/harness.py) ----
 
-    s, d = pkg_ns(src), pkg_ns(dst)
-    pair = LoopbackPair(
-        root, sender_kw={**s.device_kw, **sender_kw}, receiver_kw={**d.device_kw, **receiver_kw},
-        n_read=2, n_send=2, src=s, dst=d,
+
+class LocalGateway:
+    """One in-process gateway daemon of either package, driven through the
+    port's standard-library control client."""
+
+    def __init__(self, pkg: str, daemon, thread: threading.Thread):
+        self.pkg = pkg
+        self.daemon = daemon
+        self.thread = thread
+
+    @property
+    def control_port(self) -> int:
+        return self.daemon.api.port
+
+    def url(self, route: str) -> str:
+        scheme = "https" if self.daemon.control_tls else "http"
+        return f"{scheme}://127.0.0.1:{self.control_port}/api/v1/{route}"
+
+    def session(self):
+        from skyplane_tpu_torch.gateway.control_auth import control_session
+
+        return control_session(self.daemon.api_token)
+
+    def get(self, route: str, **kw):
+        return self.session().get(self.url(route), **kw)
+
+    def post(self, route: str, **kw):
+        return self.session().post(self.url(route), **kw)
+
+    def sender(self):
+        return next(op for op in self.daemon.operators if type(op).__name__ == "GatewaySenderOperator")
+
+    def stop(self) -> None:
+        self.daemon.stop()
+        self.thread.join(timeout=10)
+
+
+def start_gateway(pkg: str, program: dict, info: dict, gateway_id: str, chunk_dir, **kw) -> LocalGateway:
+    """Start ``pkg``'s ``GatewayDaemon`` on a thread (control port 0 on
+    127.0.0.1) and wait until its ``/status`` answers. A port daemon runs on
+    the CPU unless ``device=`` is given."""
+    from skyplane_tpu_torch.gateway.control_auth import ControlRequestError
+
+    mod = importlib.import_module(f"{_ROOTS[pkg]}.gateway.gateway_daemon")
+    kw = {**pkg_ns(pkg).device_kw, "region": "local:local", **kw}
+    daemon = mod.GatewayDaemon(
+        chunk_dir=str(chunk_dir), gateway_program=program, gateway_info=info, gateway_id=gateway_id,
+        control_port=0, bind_host="127.0.0.1", **kw,
     )
-    pair.start()
-    return pair
+    t = threading.Thread(target=daemon.run, name=f"daemon-{gateway_id}", daemon=True)
+    t.start()
+    gw = LocalGateway(pkg, daemon, t)
+    for _ in range(100):
+        try:
+            gw.get("status", timeout=1)
+            break
+        except ControlRequestError:
+            time.sleep(0.05)
+    return gw
 
 
-def file_requests(pkg: str, files):
-    """One chunk request of ``pkg`` per ``(src path, dest path, length)``."""
-    ns = pkg_ns(pkg)
-    return [
-        ns.ChunkRequest(chunk=ns.Chunk(src_key=str(s), dest_key=str(d), chunk_id=uuid.uuid4().hex, chunk_length_bytes=n, file_offset_bytes=0))
-        for s, d, n in files
-    ]
+def program(*roots) -> dict:
+    """A one-partition gateway program over ``roots``."""
+    return {"plan": [{"partitions": ["default"], "value": list(roots)}]}
+
+
+def receive_op(*, dedup=False, decrypt=False, children=None) -> dict:
+    children = [{"op_type": "write_local", "handle": "write", "children": []}] if children is None else children
+    return {"op_type": "receive", "handle": "recv", "decrypt": decrypt, "dedup": dedup, "children": children}
+
+
+def send_op(target: str, *, compress="none", encrypt=False, dedup=False, num_connections=2, handle="send", **extra) -> dict:
+    return {
+        "op_type": "send", "handle": handle, "target_gateway_id": target, "region": "local:local",
+        "num_connections": num_connections, "compress": compress, "encrypt": encrypt, "dedup": dedup,
+        "children": [], **extra,
+    }
+
+
+def read_local_op(child: dict, num_connections: int = 2) -> dict:
+    return {"op_type": "read_local", "handle": "read", "num_connections": num_connections, "children": [child]}
+
+
+def make_pair(
+    tmp, src_pkg: str = "port", dst_pkg: str = "port", *, compress="none", dedup=False, encrypt=False,
+    use_tls=False, num_connections=2, api_token=None, key=None, src_kw=None, dst_kw=None, **send_extra,
+):
+    """Start a destination daemon of ``dst_pkg`` (receive -> write_local) and a
+    source daemon of ``src_pkg`` (read_local -> send) wired to it, as the
+    JAX package's ``make_pair`` does; returns ``(src, dst)``. ``src_kw`` and
+    ``dst_kw`` go to each ``GatewayDaemon`` (``cdc_params``, ``batch_runner``,
+    ``device``...); ``send_extra`` to the send op (``window``...)."""
+    key = (bytes(range(32)) if key is None else key) if encrypt else None
+    meta = {"api_token": api_token, "control_tls": use_tls} if api_token else None
+    dst_info = {"_meta": meta} if meta else {}
+    dst = start_gateway(
+        dst_pkg, program(receive_op(dedup=dedup, decrypt=encrypt)), dst_info, "gw_dst", tmp / "dst_chunks",
+        e2ee_key=key, use_tls=use_tls, **(dst_kw or {}),
+    )
+    info = {"gw_dst": {"public_ip": "127.0.0.1", "control_port": dst.control_port}}
+    if meta:
+        info["_meta"] = meta
+    send = send_op("gw_dst", compress=compress, encrypt=encrypt, dedup=dedup, num_connections=num_connections, **send_extra)
+    src = start_gateway(
+        src_pkg, program(read_local_op(send, num_connections)), info, "gw_src", tmp / "src_chunks",
+        e2ee_key=key, use_tls=use_tls, **(src_kw or {}),
+    )
+    return src, dst
+
+
+def dispatch(src: LocalGateway, files, chunk_bytes=None):
+    """POST chunk requests for ``[(src path, dest path, length)]`` to a source
+    gateway (one request per file, or per ``chunk_bytes`` of it); returns their ids."""
+    from skyplane_tpu_torch.chunk import Chunk, ChunkRequest
+
+    reqs = []
+    for s, d, n in files:
+        step = chunk_bytes or max(n, 1)
+        for off in range(0, max(n, 1), step):
+            chunk = Chunk(src_key=str(s), dest_key=str(d), chunk_id=uuid.uuid4().hex,
+                          chunk_length_bytes=min(step, n - off), file_offset_bytes=off)
+            reqs.append(ChunkRequest(chunk=chunk, src_region="local:local", dst_region="local:local",
+                                     src_type="local", dst_type="local"))
+    resp = src.post("chunk_requests", json=[r.as_dict() for r in reqs], timeout=30)
+    resp.raise_for_status()
+    return [r.chunk.chunk_id for r in reqs]
+
+
+def wait_complete(gw: LocalGateway, chunk_ids, timeout: float = 60.0) -> None:
+    """Poll ``gw``'s ``/chunk_status_log`` until every id is complete; raise on
+    a gateway error or the timeout."""
+    deadline = time.monotonic() + timeout
+    pending = set(chunk_ids)
+    while time.monotonic() < deadline:
+        status = gw.get("chunk_status_log", params={"chunk_ids": ",".join(sorted(pending))}, timeout=30).json()["chunk_status"]
+        errs = gw.get("errors", timeout=30).json()["errors"]
+        if errs:
+            raise RuntimeError(f"gateway {gw.daemon.gateway_id} errors: {errs[0][:2000]}")
+        pending = {c for c in pending if status.get(c) != "complete"}
+        if not pending:
+            return
+        time.sleep(0.05)
+    raise TimeoutError(f"{len(pending)}/{len(chunk_ids)} chunks incomplete at {gw.daemon.gateway_id}")
+
+
+def stop_all(*gws) -> None:
+    for gw in gws:
+        try:
+            gw.stop()
+        except Exception:  # noqa: BLE001 — a drained daemon stopped itself
+            pass
 
 
 def write_sources(root, datas):
