@@ -87,6 +87,26 @@ Phases (any failure exits non-zero before the final ``ok`` line):
    work launches no K-AB or K-C (the destination's only in paranoid rounds),
    a runner that launched journals no ``phase.first_compile``, or
    ``verify_batched`` is not 24 of 24 in a paranoid round.
+   Then the pump rounds (slice 9), at the daemon's default (paranoid
+   verification off), on the same corpus and programs through two fresh
+   daemons each: ``SKYPLANE_TPU_PUMP_PROCS=1``, ``2``, ``4``, then ``2`` with
+   one sender worker SIGKILLed after a batch RPC was served and one receiver
+   worker SIGKILLed. The destination's receiver and the source's sender run in
+   that many spawned worker processes each, on the CPU; the sender workers'
+   codec batches are RPCs served by the source daemon's runner on the card.
+   The POST waits until every worker is up and has reported. Each round
+   prints Gbps, wire reduction, REF share, NACKs and resends (a REF whose
+   literal landed at a sibling receiver worker heals by NACK and a literal
+   resend: logged, not a failure), ack lag, the batch RPCs served, the
+   runner's K-AB and K-C launches and batch rows, the workers' CPU seconds,
+   and the receiver workers' decode wall; then the rounds beside the witness
+   round. A pump round fails if a file differs, a chunk failed, no batch RPC
+   was served or the runner has fewer rows than RPCs served, the runner
+   launched no K-AB or K-C, a batch RPC errored or a worker fell back to the
+   host, a worker died (outside the kill round) or a pool is not whole, or a
+   worker reports a CUDA context, jax or the JAX package loaded or a device
+   other than the CPU; the kill round fails unless each daemon respawned a
+   worker.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 line describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -130,6 +150,10 @@ STEP_ODD_STRIDE = 1000  # not a multiple of 64: K-D's byte path, on the first 81
 # of two, and one larger than a tile (streamed twice)
 STEP_EXTRA_BLOCKS = (1, 4, 16, 600, 4096, 40960)
 SLICE1 = ("gear_compact", "segment_fp")
+# phase 6's pump rounds, worker processes a daemon: 1 (one receiver worker,
+# so no REF can miss its literal at a sibling shard; the restore out of the
+# sender's process), 2 and 4
+PUMP_PROCS = (1, 2, 4)
 SLICE2 = ("gear_mask", "segment_fp_fixed", "blockpack_encode")
 
 # the card's peak rates (NVIDIA H100 SXM): HBM bytes/s from the data sheet;
@@ -760,10 +784,11 @@ class DaemonPair:
     destination ``receive`` (dedup) -> ``write_local``. Driven through the
     control API with the port's standard-library client."""
 
-    def __init__(self, dev, params, root: Path):
+    def __init__(self, dev, params, root: Path, pump_procs: int = 0):
         from skyplane_tpu_torch.gateway.control_auth import control_session
 
         self.session = control_session()
+        self.pump_procs = pump_procs
         recv = {"op_type": "receive", "handle": "recv", "dedup": True,
                 "children": [{"op_type": "write_local", "handle": "write", "children": []}]}
         self.dst = self._start(dev, params, root, "gw_dst", recv, {})
@@ -781,11 +806,19 @@ class DaemonPair:
         # a CPU daemon builds no runner: a rehearsal on the CPU hands it one
         runner = (DeviceBatchRunner(cdc_params=params, max_batch=MAX_BATCH, device=dev, gateway_id=gateway_id)
                   if dev.type == "cpu" else None)
-        daemon = GatewayDaemon(
-            "local:local", str(root / gateway_id), {"plan": [{"partitions": ["default"], "value": [op]}]}, info,
-            gateway_id, control_port=0, bind_host="127.0.0.1", use_tls=False, cdc_params=params, device=dev,
-            batch_runner=runner,
-        )
+        saved = os.environ.get("SKYPLANE_TPU_PUMP_PROCS")
+        os.environ["SKYPLANE_TPU_PUMP_PROCS"] = str(self.pump_procs)  # read once, by the daemon's constructor
+        try:
+            daemon = GatewayDaemon(
+                "local:local", str(root / gateway_id), {"plan": [{"partitions": ["default"], "value": [op]}]}, info,
+                gateway_id, control_port=0, bind_host="127.0.0.1", use_tls=False, cdc_params=params, device=dev,
+                batch_runner=runner,
+            )
+        finally:
+            if saved is None:
+                os.environ.pop("SKYPLANE_TPU_PUMP_PROCS", None)
+            else:
+                os.environ["SKYPLANE_TPU_PUMP_PROCS"] = saved
         if daemon.batch_runner is None:
             raise AssertionError(f"phase 6: daemon {gateway_id} on {dev} built no batch runner")
         thread = threading.Thread(target=daemon.run, name=f"daemon-{gateway_id}", daemon=True)
@@ -949,7 +982,139 @@ def gateway_round(dev, files, chunks, params, card: str, label: str, paranoid: b
             f"{busy_us / 1e6 / dt:.2%} of wall (idle {1 - busy_us / 1e6 / dt:.2%}); device time by name (ms): "
             + "; ".join(f"{name[:60]} {us / 1e3:.3f}" for name, us in top))
     return {"gbps": gbps, "ack_lag_s": wire["ack_lag_ns"] / 1e9, "ref_share": ref_share,
-            "restore_wall_s": split.wall_ns["recipe_restore"] / 1e9 if split is not None else None}
+            "restore_wall_s": split.wall_ns["recipe_restore"] / 1e9 if split is not None else None,
+            "decode_wall_s": decode["decode_ns"] / 1e9,
+            "decode_cpu_s": split.cpu_ns["decode"] / 1e9 if split is not None else None}
+
+
+def _file_requests(files, chunks):
+    from skyplane_tpu_torch.chunk import Chunk, ChunkRequest
+
+    return [
+        ChunkRequest(chunk=Chunk(src_key=str(s), dest_key=str(d), chunk_id=uuid.uuid4().hex,
+                                 chunk_length_bytes=len(c), file_offset_bytes=0),
+                     src_region="local:local", dst_region="local:local", src_type="local", dst_type="local")
+        for (s, d), c in zip(files, chunks)
+    ]
+
+
+def _wait_for(pred, timeout: float, what: str) -> float:
+    """Poll ``pred`` every 20 ms; seconds waited, or AssertionError at ``timeout``."""
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"phase 6: not within {timeout:.0f} s: {what}")
+        time.sleep(0.02)
+    return time.monotonic() - t0
+
+
+def _pump_workers(daemon):
+    return [w for owner in daemon._pump_pools() for w in owner.pool.live_workers()]
+
+
+def pump_round(dev, files, chunks, params, card: str, label: str, procs: int, kill: bool = False) -> dict:
+    """One round of phase 6 with ``SKYPLANE_TPU_PUMP_PROCS=procs`` through two
+    fresh port daemons: the destination's receiver and the source's sender run
+    in ``procs`` worker processes each, on the CPU; the sender workers' codec
+    batches are RPCs served by the source daemon's runner on the card (K-AB and
+    K-C). Waits until every worker is up and has reported before the POST.
+    ``kill`` SIGKILLs one sender worker once a batch RPC has been served, and
+    one receiver worker. Returns the round's numbers."""
+    import signal
+
+    from skyplane_tpu_torch.gateway.pump import is_pump_sender
+
+    for _, dest in files:
+        dest.unlink(missing_ok=True)
+    t_spawn = time.perf_counter()
+    pair = DaemonPair(dev, params, GATEWAY_DIR / f"round_{label}", pump_procs=procs)
+    src, dst = pair.src[0], pair.dst[0]
+    try:
+        sender = next(op for op in src.operators if is_pump_sender(op))
+        _wait_for(lambda: sender.pool is not None and all(
+            len(_pump_workers(d)) == procs and all(w.counters.get("runtime") for w in _pump_workers(d))
+            for d in (src, dst)), 120, f"{procs} reporting pump workers on each daemon")
+        spawn_s = time.perf_counter() - t_spawn
+        cpu_before = {d.gateway_id: sum(d._pump_worker_cpu().values()) for d in (src, dst)}
+        reqs = _file_requests(files, chunks)
+        cpu0, t0 = time.process_time(), time.perf_counter()
+        pair.dispatch(reqs)
+        killed = []
+        if kill:
+            _wait_for(lambda: sender.pump_counters()["batch_rpcs_served"] >= 1, 120, "a served batch RPC")
+            victim = max(sender.pool.live_workers(), key=lambda w: len(w.outstanding))
+            rx_victim = dst.receiver.pump.pool.live_workers()[0]
+            for w in (victim, rx_victim):
+                os.kill(w.proc.pid, signal.SIGKILL)
+                killed.append(w.name)
+        pair.wait_complete([r.chunk.chunk_id for r in reqs], timeout=300.0)
+        dt, cpu_s = time.perf_counter() - t0, time.process_time() - cpu0
+        for i, ((_, dest), c) in enumerate(zip(files, chunks)):
+            if hashlib.blake2b(dest.read_bytes(), digest_size=16).digest() != hashlib.blake2b(c, digest_size=16).digest():
+                raise AssertionError(f"phase 6 ({label}): destination file {i} differs from its source")
+        # the workers push their counters every 0.25 s: wait for the pushes
+        # that cover the round (a killed worker's last counts died with it)
+        served = lambda: sender.pump_counters()["batch_rpcs_served"]  # noqa: E731
+        _wait_for(lambda: (kill or (sender.datapath_counters().get("batch_rpcs_sent", 0) >= served()
+                                    and dst.receiver.decode_counters()["decode_chunks"] >= len(reqs)))
+                  and all(len(_pump_workers(d)) == procs and all(w.counters.get("runtime") for w in _pump_workers(d))
+                          for d in (src, dst)), 60, "the workers' final pushes")
+        time.sleep(0.3)  # one more push, for the workers' CPU clocks
+        stats = sender.datapath_counters()
+        wire = sender.wire_counters()
+        decode = dst.receiver.decode_counters()
+        pumps = {d.gateway_id: d._pump_counters() for d in (src, dst)}
+        worker_cpu_s = sum(sum(d._pump_worker_cpu().values()) - cpu_before[d.gateway_id] for d in (src, dst))
+        rx_cpu_s = sum(dst._pump_worker_cpu().values()) - cpu_before[dst.gateway_id]
+        runtimes = {w.name: w.counters.get("runtime") for d in (src, dst) for w in _pump_workers(d)}
+        launches = src.batch_runner.fused.launch_counts()
+        rows = src.batch_runner.counters()["batch_rows"]
+        status = pair.get(src, "chunk_status_log", params={"chunk_ids": ",".join(r.chunk.chunk_id for r in reqs)})
+        failed = [c for c, st in status["chunk_status"].items() if st == "failed"]
+    finally:
+        pair.stop()
+    raw_total = sum(len(c) for c in chunks)
+    gbps = raw_total * 8 / dt / 1e9
+    served_n = pumps[src.gateway_id]["batch_rpcs_served"]
+    ref_share = stats["ref_segments"] / stats["segments"] if stats["segments"] else 0.0
+    log(f"phase 6 ({label}, pump {procs} workers a daemon{', one sender and one receiver worker SIGKILLed: ' + str(killed) if kill else ''}) "
+        f"on {card}: {len(reqs)} of {len(reqs)} files written byte-identical, {raw_total} bytes in {dt:.3f} s = "
+        f"{gbps:.3f} Gbps from the POST to the last completion (workers up and reporting {spawn_s:.2f} s after "
+        f"the daemons' start, before the POST); wire bytes {stats['wire_bytes']}, wire reduction "
+        f"{raw_total / stats['wire_bytes']:.3f}x, REF segments {stats['ref_segments']} of {stats['segments']} "
+        f"({ref_share:.2%}); NACKs {wire['nacks_reaped']}, resends {wire['frames_sent'] - len(reqs)}, stream resets "
+        f"{wire['stream_resets']}; ack lag {wire['ack_lag_ns'] / 1e9:.3f} s summed over frames "
+        f"({wire['ack_lag_ns'] / 1e9 / max(wire['frames_sent'], 1):.3f} s a frame)")
+    log(f"phase 6 ({label}): batch RPCs served by the source's runner {served_n}, errors "
+        f"{pumps[src.gateway_id]['batch_rpc_errors']}, worker fallbacks {stats['batch_rpc_fallbacks']}; the runner's "
+        f"launches {launches}, batch rows {rows}; worker CPU {worker_cpu_s:.3f} s summed over {2 * procs} workers "
+        f"(receiver workers {rx_cpu_s:.3f} s), parent processes' CPU {cpu_s:.3f} s; receiver workers' decode wall "
+        f"{decode['decode_ns'] / 1e9:.3f} s summed over their decode threads ({decode['decode_workers']}), REF "
+        f"waits {decode['store_ref_wait_ns'] / 1e9:.3f} s, decode wall over receiver-worker CPU "
+        f"{decode['decode_ns'] / 1e9 / max(rx_cpu_s, 1e-9):.2f}x; pump counters {pumps}; failed chunks {len(failed)}")
+    log(f"phase 6 ({label}): worker runtime reports {runtimes}")
+    if failed:
+        raise AssertionError(f"phase 6 ({label}): chunks failed: {failed}")
+    if served_n <= 0 or rows < served_n:
+        raise AssertionError(f"phase 6 ({label}): batch RPCs served {served_n}, runner rows {rows}")
+    if any(launches.get(k, 0) == 0 for k in SLICE1):
+        raise AssertionError(f"phase 6 ({label}): the source's runner launched no {SLICE1}: {launches}")
+    if pumps[src.gateway_id]["batch_rpc_errors"] or stats["batch_rpc_fallbacks"]:
+        raise AssertionError(f"phase 6 ({label}): batch RPC errors or worker fallbacks: {pumps}, {stats}")
+    for d in (src, dst):
+        pc = pumps[d.gateway_id]
+        if kill:
+            if pc["worker_respawns"] < 1:
+                raise AssertionError(f"phase 6 ({label}): daemon {d.gateway_id} respawned no worker: {pc}")
+        elif pc["workers_alive"] != procs or pc["worker_deaths"]:
+            raise AssertionError(f"phase 6 ({label}): daemon {d.gateway_id}'s pump is not whole: {pc}")
+    bad = {n: r for n, r in runtimes.items()
+           if not r or r["cuda_initialized"] or r["jax_loaded"] or r["jax_package_loaded"] or r["device"] != "cpu"}
+    if bad or len(runtimes) != 2 * procs:
+        raise AssertionError(f"phase 6 ({label}): pump workers off the CPU-only contract: {runtimes}")
+    return {"gbps": gbps, "ack_lag_s": wire["ack_lag_ns"] / 1e9, "ref_share": ref_share,
+            "decode_wall_s": decode["decode_ns"] / 1e9, "worker_cpu_s": worker_cpu_s, "nacks": wire["nacks_reaped"],
+            "ref_wait_s": decode["store_ref_wait_ns"] / 1e9}
 
 
 def gateway_phase(dev, chunks, params, card: str, main_gbps) -> None:
@@ -975,6 +1140,8 @@ def gateway_phase(dev, chunks, params, card: str, main_gbps) -> None:
         launches = kernels.launch_counts()
         witness = gateway_round(dev, files, chunks, params, card, "witness", paranoid=False)
         gateway_round(dev, files, chunks, params, card, "traced", paranoid=True, trace=True)
+        pumped = {n: pump_round(dev, files, chunks, params, card, f"pump{n}", n) for n in PUMP_PROCS}
+        pump_round(dev, files, chunks, params, card, "pump2_kill", 2, kill=True)
     finally:
         shutil.rmtree(GATEWAY_DIR, ignore_errors=True)
     def fmt(r: dict) -> str:
@@ -985,6 +1152,13 @@ def gateway_phase(dev, chunks, params, card: str, main_gbps) -> None:
         + f"; witness round at the daemon's default (paranoid verify off): {fmt(witness)}"
         + "; phase 3 (b), the sender path alone, in this call: " + ", ".join(f"{g:.3f}" for g in main_gbps)
         + f"; process-wide kernel launches of the two paranoid rounds {launches}")
+    log(f"phase 6 on {card}: witness round (in process, paranoid off): {witness['gbps']:.3f} Gbps, ack lag "
+        f"{witness['ack_lag_s']:.3f} s, REF share {witness['ref_share']:.2%}, decode wall {witness['decode_wall_s']:.3f} s "
+        f"over decode CPU {witness['decode_cpu_s']:.3f} s = {witness['decode_wall_s'] / max(witness['decode_cpu_s'], 1e-9):.2f}x; "
+        + "; ".join(f"pump {n}: {r['gbps']:.3f} Gbps, ack lag {r['ack_lag_s']:.3f} s, REF share {r['ref_share']:.2%}, "
+                    f"NACKs {r['nacks']}, decode wall {r['decode_wall_s']:.3f} s, worker CPU {r['worker_cpu_s']:.3f} s, "
+                    f"REF waits {r['ref_wait_s']:.3f} s"
+                    for n, r in pumped.items()))
     if any(launches[k] == 0 for k in SLICE1):
         raise AssertionError(f"a kernel of the gateway path never launched: {launches}")
 

@@ -17,12 +17,13 @@ Queue wiring rules (reference :126-308):
 
 The port's daemon runs its data path on an explicit ``device`` (``"cuda"`` by
 default; it raises without a card unless ``device="cpu"`` is asked for) and
-hands it to the sender operators, the receiver and the batch runner. Three
-things of the JAX package's daemon wait for later slices and raise instead of
-running another path: the SPMD mesh runner (``SKYPLANE_TPU_SPMD=on``, ROADMAP
-queue 1 item 6), the multi-process pump (``SKYPLANE_TPU_PUMP_PROCS > 0``,
-queue 1 item 5, ``pump.py``) and the object-store operators (queue 1 item 7,
-``obj_store/``).
+hands it to the sender operators, the receiver and the batch runner. With
+``SKYPLANE_TPU_PUMP_PROCS > 0`` the receiver and every sender run in pump
+worker processes (``pump.py``) on the CPU, and the sender workers' codec
+batches come back to this daemon's runner on the card. Two things of the JAX
+package's daemon wait for later slices and raise instead of running another
+path: the SPMD mesh runner (``SKYPLANE_TPU_SPMD=on``, ROADMAP queue 1 item 6)
+and the object-store operators (queue 1 item 7, ``obj_store/``).
 """
 
 from __future__ import annotations
@@ -186,16 +187,11 @@ class GatewayDaemon:
         self._tenant_index_quota = _env_int("SKYPLANE_TPU_TENANT_INDEX_QUOTA_MB", 0, minimum=0) << 20
         self._dedup_indexes: Dict[str, object] = {}  # target gateway id -> PersistentDedupIndex
 
-        # multi-process byte pump (gateway/pump.py, docs/datapath-performance
-        # "Multi-process pump"): 0 (default) = the in-process thread data
-        # plane; N>0 shards receiver decode and sender framing/wire work
-        # across N worker processes, which the port does not have yet
+        # multi-process byte pump (gateway/pump.py): 0 (default) = the
+        # in-process thread data plane exactly as before; N>0 shards receiver
+        # decode and sender framing/wire work across N spawn-context worker
+        # processes each
         self.pump_procs = _env_int("SKYPLANE_TPU_PUMP_PROCS", 0, minimum=0)
-        if self.pump_procs:
-            raise NotImplementedError(
-                f"SKYPLANE_TPU_PUMP_PROCS={self.pump_procs}: the multi-process pump (gateway/pump.py) "
-                "is not ported yet (ROADMAP queue 1 item 5); unset it or set it to 0"
-            )
         for op in _iter_program_ops(gateway_program):
             if op.get("op_type") in OBJ_STORE_OPS:
                 raise ValueError(
@@ -251,6 +247,10 @@ class GatewayDaemon:
             gateway_id=gateway_id,
             device=self.device,
         )
+        if self.pump_procs and any(op.get("op_type") == "receive" for op in _iter_program_ops(gateway_program)):
+            # receiver shard pool only where the program actually receives —
+            # a pure source/relay-origin gateway must not pay idle workers
+            self.receiver.enable_pump(self.pump_procs, persist_dedup=self.persist_dedup)
 
         # ---- fleet-wide dedup fabric (dedup_fabric/) ----
         # Consistent-hash segment placement + peer fetch: membership comes
@@ -842,8 +842,20 @@ class GatewayDaemon:
             if region_tag:
                 self._target_regions[target_id] = str(region_tag)
             dedup = op.get("dedup", False)
-            sender = GatewaySenderOperator(
+            sender_cls = GatewaySenderOperator
+            sender_extra = {}
+            if self.pump_procs:
+                # multi-process pump: framing + codec + wire work runs in
+                # worker processes; each worker keeps a PRIVATE dedup-index
+                # partition (the daemon-shared persistent index is not
+                # multi-process safe), so no shared index is injected here
+                from skyplane_tpu_torch.gateway.pump import make_sender_pump_operator
+
+                sender_cls = make_sender_pump_operator
+                sender_extra = {"pump_procs": self.pump_procs}
+            sender = sender_cls(
                 **common,
+                **sender_extra,
                 n_workers=op.get("num_connections", 16),
                 target_gateway_id=target_id,
                 target_host=host,
@@ -864,7 +876,7 @@ class GatewayDaemon:
                 source_gateway_id=self.gateway_id,
                 peer_serve=op.get("peer_serve", False),
                 raw_forward=op.get("raw_eligible"),
-                dedup_index=self._dedup_index_for(target_id) if dedup else None,
+                dedup_index=self._dedup_index_for(target_id) if dedup and not self.pump_procs else None,
                 scheduler=self.scheduler,
                 tenant_registry=self.tenants,
                 device=self.device,

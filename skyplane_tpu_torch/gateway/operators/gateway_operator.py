@@ -556,8 +556,8 @@ class GatewaySenderOperator(GatewayOperator):
         self.target_host = target_host
         self.target_control_port = target_control_port
         self.use_tls = use_tls
-        # raw config retained for the multi-process pump (gateway/pump.py,
-        # not ported yet): worker processes rebuild the framing stack from these
+        # raw config retained for the multi-process pump (gateway/pump.py):
+        # worker processes rebuild the framing stack from these
         self._codec_name = codec_name
         self._e2ee_key = e2ee_key
         self.cdc_params = cdc_params

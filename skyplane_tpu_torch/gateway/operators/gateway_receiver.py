@@ -21,8 +21,9 @@ SegmentStore's per-fingerprint arrival event.
 The port's receiver runs its processor on an explicit ``device`` (``"cuda"``
 by default, as every port entry point; tests pass ``"cpu"``): with
 ``SKYPLANE_TPU_PARANOID_VERIFY=1`` and a batch runner, recipe chunks are
-re-fingerprinted on the card. The multi-process pump is not ported yet
-(ROADMAP queue 1 item 5): ``enable_pump`` raises ``NotImplementedError``.
+re-fingerprinted on the card. ``enable_pump`` hands accepted connections to
+pump worker processes (gateway/pump.py), which build their receivers on the
+device ``SKYPLANE_TPU_PUMP_CHILD_PLATFORM`` names (the CPU by default).
 
 Why parked REFs cannot deadlock the pool: a correct sender only emits
 REF(fp) after its LITERAL was (a) framed earlier on the SAME socket — and
@@ -99,12 +100,6 @@ DECODE_COUNTER_ZERO = {
     "decode_events_dropped": 0,
     "socket_events_dropped": 0,
 }
-
-
-def _pump_not_ported():
-    raise NotImplementedError(
-        "the multi-process receiver pump (gateway/pump.py) is not ported yet: ROADMAP queue 1 item 5"
-    )
 
 
 def put_drop_oldest(q: "queue.Queue[dict]", event: dict) -> bool:
@@ -259,8 +254,9 @@ class GatewayReceiver:
         self.use_tls = use_tls
         self._e2ee_key = e2ee_key  # raw key retained for pump worker configs
         self.cipher = ChunkCipher(e2ee_key) if e2ee_key else None
-        # multi-process pump: not ported yet (enable_pump raises), so every
-        # accepted connection is framed and decoded in this process
+        # multi-process pump (gateway/pump.py): when attached via
+        # enable_pump(), accepted connections are fd-passed to worker
+        # processes instead of framed/decoded in this process
         self.pump = None
         self.segment_store = segment_store if segment_store is not None else (SegmentStore() if dedup else None)
         from skyplane_tpu_torch.ops.cdc import CDCParams
@@ -368,10 +364,53 @@ class GatewayReceiver:
             self._ssl_ctx.load_cert_chain(certfile=str(cert), keyfile=str(key))
 
     def enable_pump(self, procs: int, persist_dedup: bool = False) -> None:
-        """Shard this receiver's decode path across worker processes: waits
-        for the port of the multi-process pump (gateway/pump.py, ROADMAP
-        queue 1 item 5)."""
-        _pump_not_ported()
+        """Shard this receiver's decode path across ``procs`` worker
+        processes (gateway/pump.py): accepts stay here, every accepted
+        socket is fd-passed to a worker that owns it end to end. Call before
+        the first start_server()."""
+        from skyplane_tpu_torch.gateway.pump import PUMP_PUSH_S_ENV, ReceiverPump
+
+        cfg = {
+            "role": "receiver",
+            "gateway_id": self.gateway_id or "gateway",
+            "region": self.region,
+            "chunk_dir": str(self.chunk_store.chunk_dir),
+            "use_tls": self.use_tls,
+            "ssl_cert_files": list(self._ssl_cert_files) if self._ssl_cert_files else None,
+            "e2ee_key": list(self._e2ee_key) if self._e2ee_key else None,
+            "dedup": self.segment_store is not None,
+            "persist_dedup": persist_dedup,
+            "raw_forward": self.raw_forward,
+            "cdc": (self._cdc_params.min_bytes, self._cdc_params.avg_bytes, self._cdc_params.max_bytes),
+            "ref_wait_timeout": self.ref_wait_timeout,
+            "decode_workers": max(2, len(self._decode_threads) // max(1, procs)),
+            "procs": int(procs),
+            "push_s": float(os.environ.get(PUMP_PUSH_S_ENV, "0.25") or 0.25),
+        }
+        self.pump = ReceiverPump(
+            cfg,
+            procs,
+            gateway_id=self.gateway_id or "gateway",
+            error_event=self.error_event,
+            error_queue=self.error_queue,
+            # workers tally per-tenant decode/nack attribution; the pump
+            # replays the deltas into the daemon's real registry
+            tenant_registry=self.tenant_registry,
+        )
+        # the parent decode pool can never receive work once every accepted
+        # socket is fd-passed to a worker: retire it (idle threads would also
+        # skew the muxed decode_workers gauge to parent+workers summed). The
+        # parent SegmentStore stays — /servers still advertises its capacity
+        # and the daemon's shutdown spill/adoption contract reads it — but it
+        # holds no resident segments in pump mode (nothing decodes here).
+        for _ in self._decode_threads:
+            try:
+                self._work_q.put_nowait(None)
+            except queue.Full:
+                break
+        for t in self._decode_threads:
+            t.join(timeout=2.0)
+        self._decode_threads = []
 
     def start_server(self) -> int:
         """Bind a new ephemeral data port; returns the port (reference :69-114)."""
@@ -411,7 +450,7 @@ class GatewayReceiver:
         for p in ports:
             self.stop_server(p)
         if self.pump is not None:
-            _pump_not_ported()
+            self.pump.stop()
         # sentinels queue BEHIND any in-flight tasks, so workers finish real
         # work first; the receiver is single-use after stop_all. Best-effort:
         # a full queue means workers are still draining real tasks — they are
@@ -430,7 +469,11 @@ class GatewayReceiver:
                 return  # listener closed
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             if self.pump is not None:
-                _pump_not_ported()
+                # multi-process pump: the raw accepted socket crosses to a
+                # worker process (socket.send_fds); TLS handshake, framing
+                # and decode all run there
+                self.pump.dispatch_connection(conn, port)
+                continue
             self.adopt_connection(conn, port, addr=addr)
 
     def adopt_connection(self, conn: socket.socket, port: int, addr=None) -> bool:
@@ -887,7 +930,12 @@ class GatewayReceiver:
             out[k] = pool[k]
         out.update(self.processor.verify_counters())
         if self.pump is not None:
-            _pump_not_ported()
+            # multi-process pump: the decode work happened in the worker
+            # processes; merge their pushed snapshots so one scrape shows
+            # the whole gateway (the mux-on-the-parent telemetry contract)
+            from skyplane_tpu_torch.gateway.pump import merge_numeric_counters
+
+            out = merge_numeric_counters(out, self.pump.decode_snapshots())
         return out
 
     def socket_events_dropped(self) -> int:

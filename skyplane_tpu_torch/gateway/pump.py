@@ -1,18 +1,93 @@
-"""Multi-process byte pump: the counter schema and the sender test only.
+"""Multi-process byte pump: shard the gateway wire stack across cores.
 
-The pump itself (``ReceiverPump``, the sender pump operator, the remote batch
-runner behind the processor's ``remote`` branch) shards the gateway's wire
-stack across spawn-context worker processes. It is the next slice of the port
-(ROADMAP queue 1 item 5, "After it: pump.py"). Until then the daemon refuses
-``SKYPLANE_TPU_PUMP_PROCS > 0`` and ``GatewayReceiver.enable_pump`` raises.
+The gateway's sender, receiver and operator data plane is threads in one
+Python process, so the interpreter lock caps it near one core: the receiver's
+recipe restore spends most of its wall time queueing for the lock. This
+module shards the byte-pumping work across ``SKYPLANE_TPU_PUMP_PROCS``
+spawn-context worker processes, each owning a shard of connections and
+streams end to end:
 
-What the daemon needs already is here, with the JAX package's names and
-values: :data:`PUMP_COUNTER_ZERO`, so ``/api/v1/metrics`` carries the
-``skyplane_pump_*`` families at zero as a daemon with the pump off does, and
-:func:`is_pump_sender`, which no operator satisfies yet.
+  receiver side
+      The parent daemon keeps accepting on its data ports, but instead of
+      framing and decoding in-process it passes each accepted socket to a
+      receiver worker via ``socket.send_fds`` (SCM_RIGHTS). The worker does
+      the TLS handshake (loading the parent's on-disk cert) and runs the
+      framing loop, decode pool and chunk-file landing in its own process.
+      Chunk files and ``.done`` markers land in the SHARED chunk_dir, so the
+      parent's WaitReceiver/write operators and completion accounting work
+      unchanged: disk is the data interface, the control channel carries
+      only counters and telemetry.
+  sender side
+      The pump sender operator replaces the in-process framing threads:
+      parent worker threads drain chunk-request windows and ship the batch
+      descriptors to the least-loaded sender worker, which runs the real
+      ``GatewaySenderOperator`` (DataPathProcessor codec/dedup, seal and the
+      pipelined ``SenderWireEngine`` socket pump) against its own private
+      connections. Each worker owns its stream shard and a PRIVATE
+      per-worker ``SenderDedupIndex`` partition; a REF that lands at a
+      different receiver shard than its literal heals through the NACK ->
+      literal-resend path (the wire protocol already tolerates it).
+
+The card belongs to the parent. Workers build their data path on the device
+``SKYPLANE_TPU_PUMP_CHILD_PLATFORM`` names (``cpu`` by default: a worker never
+creates a CUDA context unless asked to) and ignore the daemon's
+``SKYPLANE_GATEWAY_DEVICE``. When the parent daemon owns a device batch
+runner, each sender worker's ``RemoteBatchRunner`` ships its chunk bytes over
+the control channel and the parent runs them through that runner: the gear
+hash and candidate compaction (K-AB) and the segment fingerprints (K-C) on
+the card.
+
+Shared state crosses the process boundary through explicit channels only:
+a length-prefixed-JSON control channel per worker (one AF_UNIX socketpair)
+carrying fd-passing messages, batch descriptors, batch RPCs, and the
+requeue/complete/fail accounting stream that preserves the tracker's truth
+table exactly: acked chunks stay complete, un-acked chunks requeue
+(uncounted) in the parent when a worker dies. Worker death is a recoverable
+fault: the parent respawns a replacement (bounded by
+``SKYPLANE_TPU_PUMP_RESPAWNS``) and only escalates daemon-fatal when a pool
+loses every worker past its budget.
+
+Every worker is a telemetry citizen: it arms its own profiler, lock witness,
+tracer and fault injector from the inherited environment (spawn children see
+the parent's env) and pushes counter and core-budget snapshots over the
+control channel; the parent muxes them into its own API surface
+(``/api/v1/profile/stacks`` summaries, ``/api/v1/telemetry`` cpu/profile,
+``skyplane_pump_*`` metrics), so a collector sees one gateway row whose
+cores-effective number is the SUM of the parent and its workers.
+
+``SKYPLANE_TPU_PUMP_PROCS=0`` (the default) disables everything: no import
+cost, no behavior change; the in-process thread data plane runs exactly as
+before. Fault point ``pump.worker_crash`` kills a first-generation worker
+mid-transfer; respawned replacements never evaluate it, so a chaos plan
+cannot crash-loop the pump.
 """
 
 from __future__ import annotations
+
+import json
+import multiprocessing
+import os
+import socket
+import struct
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+from skyplane_tpu_torch.utils.logger import logger
+from skyplane_tpu_torch.obs import lockwitness as lockcheck
+
+# spawn, never fork: the daemon is heavily threaded and holds locks on every
+# hot path — a forked child would inherit lock states owned by threads that
+# do not exist in the child (the bug class the fork-safety lint rules keep
+# out of this module).
+SPAWN_CTX = multiprocessing.get_context("spawn")
+
+PUMP_PROCS_ENV = "SKYPLANE_TPU_PUMP_PROCS"
+PUMP_RESPAWNS_ENV = "SKYPLANE_TPU_PUMP_RESPAWNS"
+PUMP_PUSH_S_ENV = "SKYPLANE_TPU_PUMP_PUSH_S"
+#: fault point: a first-generation pump worker
+#: exits hard (os._exit) mid-transfer — the parent must respawn and requeue
+PUMP_CRASH_POINT = "pump.worker_crash"
 
 #: stable pump-counter schema (mirrors SENDER_WIRE_COUNTER_ZERO's role):
 #: always present on /api/v1/metrics as skyplane_pump_* once a daemon runs,
@@ -33,9 +108,1567 @@ PUMP_COUNTER_ZERO = {
     "batch_rpc_errors": 0,  # parent-side batch RPC failures (worker fell back to host)
 }
 
-#: the pump sender operator's class, set when the pump is ported
+
+def pump_procs(default: int = 0) -> int:
+    """The ``SKYPLANE_TPU_PUMP_PROCS`` knob: 0 (the
+    default) keeps the in-process thread data plane; N>0 shards the wire
+    stack across N receiver workers and N sender workers per send operator."""
+    try:
+        return max(0, int(os.environ.get(PUMP_PROCS_ENV, str(default))))
+    except ValueError:
+        logger.fs.warning(f"ignoring malformed {PUMP_PROCS_ENV}; pump disabled")
+        return 0
+
+
+def _env_int(var: str, default: int, minimum: int = 0) -> int:
+    try:
+        return max(minimum, int(os.environ.get(var, str(default))))
+    except ValueError:
+        logger.fs.warning(f"ignoring malformed {var}; using {default}")
+        return default
+
+
+def _env_float(var: str, default: float) -> float:
+    try:
+        return float(os.environ.get(var, str(default)))
+    except ValueError:
+        logger.fs.warning(f"ignoring malformed {var}; using {default}")
+        return default
+
+
+# --------------------------------------------------------- control channel
+
+
+class CtrlChannel:
+    """Length-prefixed JSON messages (with optional SCM_RIGHTS fds) over one
+    AF_UNIX stream socketpair — the ONLY way state crosses the pump's
+    process boundary. A message declaring ``n_fds`` carries exactly that
+    many descriptors in the same sendmsg, so fd/message alignment holds by
+    construction (sends are serialized; ancillary data is delivered with the
+    first byte of the segment it rode).
+    """
+
+    MAX_MSG = 32 << 20  # hard parse bound: a corrupt length can't OOM us
+
+    def __init__(self, sock: socket.socket):
+        self.sock = sock
+        self._send_lock = lockcheck.wrap(threading.Lock(), "CtrlChannel._send_lock")
+        self._buf = bytearray()
+        self._fds: List[int] = []
+        self._closed = False
+
+    MAX_RAW = 1 << 30  # bound on a message's binary trailer (one chunk's bytes)
+
+    def send(self, msg: dict, fds: Tuple[int, ...] = (), raw=None) -> bool:
+        """Serialize + send one message (thread-safe). Returns False when the
+        peer is gone — callers treat that as worker/parent death, never an
+        exception on a hot path. ``raw`` (bytes-like) rides AFTER the JSON
+        frame under the same lock — the batch-RPC payload path: chunk bytes
+        and fingerprint digests cross without a base64/JSON copy. The frame
+        declares ``raw_len`` so recv() reunites them by construction."""
+        if raw is not None:
+            msg = dict(msg)
+            msg["raw_len"] = memoryview(raw).nbytes
+        payload = json.dumps(msg, separators=(",", ":")).encode()
+        data = struct.pack("!I", len(payload)) + payload
+        with self._send_lock:
+            if self._closed:
+                return False
+            try:
+                if fds:
+                    # sklint: disable=socket-io-under-lock,blocking-under-lock -- local AF_UNIX socketpair to a co-located pump worker; the peer's reader drains continuously and a dead peer raises EPIPE instead of blocking
+                    sent = socket.send_fds(self.sock, [data], list(fds))
+                else:
+                    # sklint: disable=socket-io-under-lock -- same local socketpair; the lock only serializes concurrent writers so frames never interleave
+                    sent = self.sock.send(data)
+                if sent < len(data):
+                    # sklint: disable=socket-io-under-lock -- remainder of the same locally-drained frame
+                    self.sock.sendall(data[sent:])
+                if raw is not None and memoryview(raw).nbytes:
+                    # sklint: disable=socket-io-under-lock,blocking-under-lock -- the declared binary trailer of the frame above; must stay atomic with it
+                    self.sock.sendall(raw)
+                return True
+            except OSError:
+                return False
+
+    def recv(self) -> Optional[Tuple[dict, List[int]]]:
+        """Blocking read of the next (message, fds) pair; None on EOF/close."""
+        while True:
+            if len(self._buf) >= 4:
+                (n,) = struct.unpack("!I", self._buf[:4])
+                if n > self.MAX_MSG:
+                    return None  # corrupt stream: treat as death
+                if len(self._buf) >= 4 + n:
+                    raw = bytes(self._buf[4 : 4 + n])
+                    del self._buf[: 4 + n]
+                    try:
+                        msg = json.loads(raw)
+                    except ValueError:
+                        return None
+                    n_fds = int(msg.get("n_fds", 0) or 0)
+                    fds, self._fds = self._fds[:n_fds], self._fds[n_fds:]
+                    n_raw = int(msg.get("raw_len", 0) or 0)
+                    if n_raw:
+                        if n_raw > self.MAX_RAW:
+                            return None  # corrupt stream: treat as death
+                        while len(self._buf) < n_raw:
+                            try:
+                                data, more_fds, _flags, _addr = socket.recv_fds(self.sock, 1 << 20, 16)
+                            except OSError:
+                                return None
+                            if not data and not more_fds:
+                                return None
+                            self._buf += data
+                            self._fds.extend(more_fds)
+                        msg["_raw"] = bytes(self._buf[:n_raw])
+                        del self._buf[:n_raw]
+                    return msg, fds
+            try:
+                data, fds, _flags, _addr = socket.recv_fds(self.sock, 1 << 20, 16)
+            except OSError:
+                return None
+            if not data and not fds:
+                return None  # clean EOF
+            self._buf += data
+            self._fds.extend(fds)
+
+    def close(self) -> None:
+        with self._send_lock:
+            self._closed = True
+        for fd in self._fds:
+            try:
+                os.close(fd)
+            except OSError:
+                pass
+        self._fds = []
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+
+# ------------------------------------------------------------- worker pool
+
+
+class _WorkerHandle:
+    """Parent-side record of one live (or dying) pump worker process."""
+
+    __slots__ = ("idx", "gen", "name", "proc", "chan", "reader", "alive", "counters", "outstanding", "cpu_s")
+
+    def __init__(self, idx: int, gen: int, name: str, proc, chan: CtrlChannel):
+        self.idx = idx
+        self.gen = gen
+        self.name = name
+        self.proc = proc
+        self.chan = chan
+        self.reader: Optional[threading.Thread] = None
+        self.alive = True
+        self.counters: dict = {}  # latest cumulative push from the worker
+        self.outstanding: set = set()  # sender pools: chunk ids shipped, not terminal
+        self.cpu_s = 0.0  # latest process_cpu_s push
+
+
+class PumpPool:
+    """Spawn-context worker pool with respawn-on-death (the recoverable-fault
+    contract): one pool per role — the receiver pump owns one, every pump
+    sender operator owns one. Message handling and death cleanup are
+    delegated to the owner through callbacks so this class stays pure
+    process/channel lifecycle."""
+
+    def __init__(
+        self,
+        role: str,
+        procs: int,
+        cfg: dict,
+        *,
+        gateway_id: str,
+        on_message: Callable[[_WorkerHandle, dict, List[int]], None],
+        on_death: Callable[[_WorkerHandle], None],
+        on_pool_lost: Callable[[str], None],
+        respawn_budget: Optional[int] = None,
+    ):
+        self.role = role
+        self.procs = max(1, int(procs))
+        self.cfg = dict(cfg)
+        self.gateway_id = gateway_id
+        self.on_message = on_message
+        self.on_death = on_death
+        self.on_pool_lost = on_pool_lost  # escalation: pool empty past budget
+        self.respawn_budget = (
+            respawn_budget if respawn_budget is not None else _env_int(PUMP_RESPAWNS_ENV, 4, minimum=0)
+        )
+        self._lock = lockcheck.wrap(threading.Lock(), "PumpPool._lock")
+        self._workers: List[_WorkerHandle] = []
+        self._stopping = False
+        self._started = False
+        self._spawns = 0
+        self._deaths = 0
+        self._respawns = 0
+        self._msg_count = 0
+        self._rr = 0  # round-robin cursor (receiver dispatch)
+        # terminal-outcome wake for ship_batch backpressure waits
+        self.slot_event = threading.Event()
+        # cpu seconds of dead workers, folded so exported totals never drop
+        self._retired_cpu_s = 0.0
+
+    # ---- lifecycle ----
+
+    def start(self) -> None:
+        with self._lock:
+            if self._started:
+                return
+            self._started = True
+            for i in range(self.procs):
+                self._spawn_locked(i, gen=0)
+        logger.fs.info(f"[pump:{self.gateway_id}] {self.role} pool up: {self.procs} worker process(es)")
+
+    def _spawn_locked(self, idx: int, gen: int) -> _WorkerHandle:
+        name = f"pump-{self.role}{idx}.g{gen}"
+        cfg = dict(self.cfg)
+        cfg["worker_idx"] = idx
+        cfg["worker_gen"] = gen
+        cfg["worker_name"] = name
+        # the crash fault point is live only in first-generation workers:
+        # a respawned replacement re-reading the same env plan would fire the
+        # same deterministic schedule again and crash-loop the pool
+        cfg["crash_armed"] = gen == 0
+        parent_sock, child_sock = socket.socketpair()
+        try:
+            proc = SPAWN_CTX.Process(
+                target=_pump_worker_main, args=(cfg, child_sock), name=f"{self.gateway_id}-{name}", daemon=True
+            )
+            proc.start()
+        except BaseException:
+            # spawn failure (fork/exec EAGAIN, unpicklable cfg) strands BOTH
+            # halves of the pair — and the supervisor will retry the spawn
+            parent_sock.close()
+            child_sock.close()
+            raise
+        chan = CtrlChannel(parent_sock)  # owns the parent half from here on
+        child_sock.close()  # the child holds its own copy now
+        w = _WorkerHandle(idx, gen, name, proc, chan)
+        w.reader = threading.Thread(target=self._read_loop, args=(w,), name=f"pump-reader-{name}", daemon=True)
+        self._workers.append(w)
+        self._spawns += 1
+        w.reader.start()
+        return w
+
+    def _read_loop(self, w: _WorkerHandle) -> None:
+        while True:
+            got = w.chan.recv()
+            if got is None:
+                break
+            msg, fds = got
+            with self._lock:
+                self._msg_count += 1
+            try:
+                self.on_message(w, msg, fds)
+            except Exception:  # noqa: BLE001 — a bad message must not kill the reader
+                import traceback
+
+                logger.fs.error(f"[pump:{self.gateway_id}] {w.name} message handling failed: {traceback.format_exc()}")
+            finally:
+                for fd in fds:  # any fds the handler did not adopt are owned here
+                    try:
+                        os.close(fd)
+                    except OSError:
+                        pass
+        self._handle_exit(w)
+
+    def _handle_exit(self, w: _WorkerHandle) -> None:
+        with self._lock:
+            if not w.alive:
+                return
+            w.alive = False
+            self._retired_cpu_s += w.cpu_s
+            stopping = self._stopping
+            if not stopping:
+                self._deaths += 1
+        w.chan.close()
+        if stopping:
+            return
+        logger.fs.warning(
+            f"[pump:{self.gateway_id}] {self.role} worker {w.name} died "
+            f"(exitcode={w.proc.exitcode}); recovering"
+        )
+        from skyplane_tpu_torch.obs.events import EV_PUMP_WORKER_DEATH, get_recorder
+
+        get_recorder().record(
+            EV_PUMP_WORKER_DEATH,
+            gateway=self.gateway_id,
+            role=self.role,
+            worker=w.name,
+            exitcode=w.proc.exitcode,
+            outstanding=len(w.outstanding),
+        )
+        # owner cleanup FIRST (requeue outstanding chunks, fold counters) so
+        # nothing is lost even if the respawn below is declined by the budget
+        try:
+            self.on_death(w)
+        except Exception:  # noqa: BLE001 — cleanup failure must surface, not vanish
+            import traceback
+
+            logger.fs.error(f"[pump:{self.gateway_id}] death cleanup failed: {traceback.format_exc()}")
+        self.slot_event.set()
+        with self._lock:
+            if self._stopping:
+                return
+            if self._respawns < self.respawn_budget:
+                self._respawns += 1
+                replacement = self._spawn_locked(w.idx, gen=w.gen + 1)
+                logger.fs.warning(
+                    f"[pump:{self.gateway_id}] respawned {self.role} worker {replacement.name} "
+                    f"({self._respawns}/{self.respawn_budget} respawns)"
+                )
+                return
+            any_live = any(x.alive for x in self._workers)
+        if not any_live:
+            self.on_pool_lost(
+                f"{self.role} pump pool lost every worker and exhausted its respawn budget "
+                f"({self.respawn_budget}; {PUMP_RESPAWNS_ENV})"
+            )
+        else:
+            logger.fs.warning(
+                f"[pump:{self.gateway_id}] {self.role} pool degraded: respawn budget exhausted, "
+                f"continuing on surviving workers"
+            )
+
+    def stop(self, timeout_s: float = 5.0) -> None:
+        with self._lock:
+            self._stopping = True
+            workers = list(self._workers)
+        for w in workers:
+            w.chan.send({"type": "stop"})
+        deadline = time.monotonic() + timeout_s
+        for w in workers:
+            w.proc.join(timeout=max(0.1, deadline - time.monotonic()))
+            if w.proc.is_alive():
+                w.proc.terminate()
+                w.proc.join(timeout=1.0)
+            w.chan.close()
+        for w in workers:
+            if w.reader is not None and w.reader is not threading.current_thread():
+                w.reader.join(timeout=1.0)
+
+    # ---- selection / shipping ----
+
+    def live_workers(self) -> List[_WorkerHandle]:
+        with self._lock:
+            return [w for w in self._workers if w.alive]
+
+    def next_round_robin(self) -> Optional[_WorkerHandle]:
+        with self._lock:
+            live = [w for w in self._workers if w.alive]
+            if not live:
+                return None
+            w = live[self._rr % len(live)]
+            self._rr += 1
+            return w
+
+    def least_loaded(self, cap: int) -> Optional[_WorkerHandle]:
+        with self._lock:
+            live = [w for w in self._workers if w.alive and len(w.outstanding) < cap]
+            if not live:
+                return None
+            return min(live, key=lambda w: len(w.outstanding))
+
+    def broadcast(self, msg: dict) -> None:
+        for w in self.live_workers():
+            w.chan.send(msg)
+
+    # ---- telemetry ----
+
+    def counters(self) -> dict:
+        with self._lock:
+            live = [w for w in self._workers if w.alive]
+            return {
+                "procs": self.procs,
+                "workers_alive": len(live),
+                "worker_spawns": self._spawns,
+                "worker_deaths": self._deaths,
+                "worker_respawns": self._respawns,
+                "chunks_outstanding": sum(len(w.outstanding) for w in self._workers),
+                "ctrl_messages": self._msg_count,
+            }
+
+    def worker_cpu_s(self) -> Dict[str, float]:
+        """Per-worker process CPU seconds (latest push), dead workers folded
+        into one retired row so totals stay monotonic across scrapes."""
+        out: Dict[str, float] = {}
+        with self._lock:
+            for w in self._workers:
+                if w.alive:
+                    out[f"{self.role}{w.idx}"] = w.cpu_s
+            if self._retired_cpu_s:
+                out[f"{self.role}-retired"] = self._retired_cpu_s
+        return out
+
+    def trace_events(self) -> List[dict]:
+        """Live workers' latest span-ring exports (each push replaces the
+        previous snapshot, mirroring ring semantics) — the daemon's
+        /api/v1/trace unions these with the parent tracer so the collector's
+        per-gateway regrouping sees one gateway across N processes."""
+        out: List[dict] = []
+        for w in self.live_workers():
+            trace = (w.counters or {}).get("trace")
+            if isinstance(trace, list):
+                out.extend(trace)
+        return out
+
+    def profile_summaries(self) -> List[dict]:
+        out = []
+        for w in self.live_workers():
+            prof = (w.counters or {}).get("profile")
+            if isinstance(prof, dict) and prof.get("samples"):
+                prof = dict(prof)
+                prof["worker"] = w.name
+                out.append(prof)
+        return out
+
+
+def merge_numeric_counters(base: dict, snaps: List[dict], rates: Tuple[str, ...] = ("pool_hit_rate",)) -> dict:
+    """Sum numeric counter snapshots onto ``base`` (schema-preserving), then
+    recompute the named hit-rate style keys from the summed hits/misses."""
+    out = dict(base)
+    for snap in snaps:
+        if not isinstance(snap, dict):
+            continue
+        for k, v in snap.items():
+            if k in rates or not isinstance(v, (int, float)) or isinstance(v, bool):
+                continue
+            out[k] = out.get(k, 0) + v
+    if "pool_hit_rate" in out:
+        lookups = out.get("pool_hits", 0) + out.get("pool_misses", 0)
+        out["pool_hit_rate"] = round(out.get("pool_hits", 0) / lookups, 4) if lookups else 0.0
+    return out
+
+
+# --------------------------------------------------- parent-routed batches
+
+
+class _RemoteBatchHandle:
+    """Worker-side handle for one batch RPC in flight to the parent's device
+    runner. Blocking with the same 600 s backstop as BatchHandle; ``wait_ns``
+    accumulates actual blocked time for the datapath stall accounting."""
+
+    def __init__(self):
+        self._event = threading.Event()
+        self._ends = None
+        self._fps: Optional[List[bytes]] = None
+        self._error: Optional[str] = None
+        self.wait_ns = 0
+
+    def _wait(self) -> None:
+        if not self._event.is_set():
+            t0 = time.perf_counter_ns()
+            self._event.wait(timeout=600)
+            self.wait_ns += time.perf_counter_ns() - t0
+        if not self._event.is_set():
+            raise TimeoutError("parent batch runner stalled")
+        if self._error is not None:
+            raise RuntimeError(f"parent batch runner failed: {self._error}")
+
+    def ends(self):
+        self._wait()
+        return self._ends
+
+    def fps(self) -> List[bytes]:
+        self._wait()
+        return self._fps
+
+
+class RemoteBatchRunner:
+    """Worker-side proxy for the PARENT daemon's DeviceBatchRunner: pump
+    workers run on the CPU (the card belongs to the parent), so codec
+    batches ship over the CtrlChannel as raw-trailer RPCs and the parent
+    runs them through its runner's kernels on the card. N framing workers
+    submitting concurrently land in the parent runner's leader-batching
+    window, so cores feed one card instead of competing with it. Duck-types
+    the DeviceBatchRunner surface DataPathProcessor uses:
+    ``remote``/``cdc_params``/``pool``/``counters``/``submit``. Parent death
+    degrades to the exact host kernels (``cdc_and_fps_host``, bit-identical),
+    counted in ``batch_rpc_fallbacks``, never an error on the data path."""
+
+    remote = True
+
+    def __init__(self, chan: CtrlChannel, cdc_params):
+        from skyplane_tpu_torch.ops.bufpool import BufferPool
+
+        self.chan = chan
+        self.cdc_params = cdc_params
+        self.pool = BufferPool()
+        self._lock = lockcheck.wrap(threading.Lock(), "RemoteBatchRunner._lock")
+        self._next_id = 0
+        self._pending: Dict[int, _RemoteBatchHandle] = {}
+        self._counters = {"batch_rpcs_sent": 0, "batch_rpc_fallbacks": 0}
+
+    def counters(self) -> dict:
+        with self._lock:
+            c = dict(self._counters)
+        c.update(self.pool.counters())
+        return c
+
+    def submit(self, arr) -> _RemoteBatchHandle:
+        import numpy as np
+
+        arr = np.ascontiguousarray(np.frombuffer(arr, np.uint8) if not isinstance(arr, np.ndarray) else arr)
+        handle = _RemoteBatchHandle()
+        with self._lock:
+            rpc_id = self._next_id
+            self._next_id += 1
+            self._pending[rpc_id] = handle
+            self._counters["batch_rpcs_sent"] += 1
+        if not self.chan.send({"type": "batch_rpc", "rpc_id": rpc_id}, raw=memoryview(arr)):
+            # parent gone (shutdown race): same bytes through the exact host
+            # kernels, bit-identical by the CDC determinism contract
+            from skyplane_tpu_torch.ops.cdc import cdc_and_fps_host
+
+            with self._lock:
+                self._pending.pop(rpc_id, None)
+                self._counters["batch_rpc_fallbacks"] += 1
+            handle._ends, handle._fps = cdc_and_fps_host(arr, self.cdc_params)
+            handle._event.set()
+        return handle
+
+    def cdc_and_fps(self, arr, padded=None):
+        handle = self.submit(arr)
+        return handle.ends(), handle.fps()
+
+    def resolve(self, msg: dict) -> None:
+        """Apply one ``batch_result`` from the parent (recv-loop thread)."""
+        import numpy as np
+
+        with self._lock:
+            handle = self._pending.pop(msg.get("rpc_id"), None)
+        if handle is None:
+            return  # duplicate / post-fallback straggler
+        if msg.get("error"):
+            handle._error = str(msg["error"])
+        else:
+            handle._ends = np.asarray(msg.get("ends") or [], dtype=np.int64)
+            raw = msg.get("_raw") or b""
+            handle._fps = [bytes(raw[i * 16 : (i + 1) * 16]) for i in range(len(raw) // 16)]
+        handle._event.set()
+
+
+# ---------------------------------------------------------- receiver pump
+
+
+class _TenantTally:
+    """Minimal tenant-accounting shim for receiver workers: absorbs the
+    ``note_decoded``/``note_nack`` calls GatewayReceiver makes (the only two
+    methods it uses) into cumulative per-tenant counts that ride the counter
+    pushes; the PARENT replays the deltas into its real TenantRegistry, so
+    per-tenant receive-side attribution survives the process boundary."""
+
+    def __init__(self):
+        self._lock = lockcheck.wrap(threading.Lock(), "_TenantTally._lock")
+        self._decoded: Dict[str, int] = {}
+        self._nacks: Dict[str, int] = {}
+
+    def note_decoded(self, tenant_id, raw_bytes: int) -> None:
+        key = str(tenant_id or "")
+        with self._lock:
+            self._decoded[key] = self._decoded.get(key, 0) + int(raw_bytes)
+
+    def note_nack(self, tenant_id) -> None:
+        key = str(tenant_id or "")
+        with self._lock:
+            self._nacks[key] = self._nacks.get(key, 0) + 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"decoded": dict(self._decoded), "nacks": dict(self._nacks)}
+
+
+class ReceiverPump:
+    """Parent half of the receiver shard pool: accepts stay in the daemon,
+    accepted sockets travel to workers over SCM_RIGHTS, decode/landing runs
+    in the workers against the shared chunk_dir."""
+
+    def __init__(self, cfg: dict, procs: int, *, gateway_id: str, error_event, error_queue, tenant_registry=None):
+        self.gateway_id = gateway_id
+        self.error_event = error_event
+        self.error_queue = error_queue
+        self.tenant_registry = tenant_registry
+        self._conns_dispatched = 0
+        self._lock = lockcheck.wrap(threading.Lock(), "ReceiverPump._lock")
+        # per-worker last-applied tenant tallies (cumulative pushes -> exact
+        # delta replay into the parent's TenantRegistry)
+        self._tenant_applied: Dict[str, dict] = {}
+        # dead workers' last decode snapshots fold here so decode counters
+        # (chunks landed, bytes) never go backward across a respawn
+        self._retired_decode: List[dict] = []
+        cfg = dict(cfg)
+        cfg["role"] = "receiver"
+        self.pool = PumpPool(
+            "receiver",
+            procs,
+            cfg,
+            gateway_id=gateway_id,
+            on_message=self._on_message,
+            on_death=self._on_death,
+            on_pool_lost=self._fatal,
+        )
+        self.pool.start()
+
+    def dispatch_connection(self, conn: socket.socket, port: int) -> bool:
+        """Hand one accepted (raw TCP) connection to a worker. False when no
+        worker could take it — the caller closes the socket and the sender's
+        stream-reset machinery retries the connect."""
+        for _ in range(max(1, self.pool.procs)):
+            w = self.pool.next_round_robin()
+            if w is None:
+                break
+            if w.chan.send({"type": "conn", "port": port, "n_fds": 1}, fds=(conn.fileno(),)):
+                with self._lock:
+                    self._conns_dispatched += 1
+                try:
+                    conn.close()  # the worker owns the (dup'd) fd now
+                except OSError:
+                    pass
+                return True
+        logger.fs.warning(f"[pump:{self.gateway_id}] no live receiver worker for a new connection; dropping it")
+        try:
+            conn.close()
+        except OSError:
+            pass
+        return False
+
+    def _on_message(self, w: _WorkerHandle, msg: dict, fds: List[int]) -> None:
+        kind = msg.get("type")
+        if kind == "counters":
+            _absorb_counters(w, msg)
+            _replay_worker_events(self.gateway_id, w.name, msg.get("events"))
+            self._replay_tenant_tally(w, msg.get("tenants"))
+        elif kind == "fatal":
+            self.error_queue.put(f"[pump receiver worker {w.name}] {msg.get('detail', '')}")
+            self.error_event.set()
+
+    def _replay_tenant_tally(self, w: _WorkerHandle, tally) -> None:
+        """Apply one worker's cumulative per-tenant decode/nack tally as
+        exact deltas onto the parent's TenantRegistry — receive-side tenant
+        attribution (docs/multitenancy.md) survives the process boundary."""
+        if self.tenant_registry is None or not isinstance(tally, dict):
+            return
+        with self._lock:
+            prev = self._tenant_applied.setdefault(w.name, {"decoded": {}, "nacks": {}})
+            decode_deltas = []
+            for tenant, total in (tally.get("decoded") or {}).items():
+                delta = int(total) - prev["decoded"].get(tenant, 0)
+                if delta > 0:
+                    prev["decoded"][tenant] = int(total)
+                    decode_deltas.append((tenant, delta))
+            nack_deltas = []
+            for tenant, total in (tally.get("nacks") or {}).items():
+                delta = int(total) - prev["nacks"].get(tenant, 0)
+                if delta > 0:
+                    prev["nacks"][tenant] = int(total)
+                    nack_deltas.append((tenant, delta))
+        for tenant, delta in decode_deltas:
+            self.tenant_registry.note_decoded(tenant or None, delta)
+        for tenant, delta in nack_deltas:
+            for _ in range(delta):
+                self.tenant_registry.note_nack(tenant or None)
+
+    def _on_death(self, w: _WorkerHandle) -> None:
+        # landed chunks are durable on disk (.done markers) — nothing to
+        # requeue here; in-flight frames on its sockets re-send through the
+        # sender's stream-reset path. Fold its last counters so decode
+        # totals stay monotonic.
+        snap = (w.counters or {}).get("decode")
+        if isinstance(snap, dict):
+            with self._lock:
+                self._retired_decode.append(snap)
+
+    def _fatal(self, msg: str) -> None:
+        self.error_queue.put(msg)
+        self.error_event.set()
+
+    def decode_snapshots(self) -> List[dict]:
+        """Live workers' latest decode-counter pushes plus retired workers'
+        final snapshots (GatewayReceiver.decode_counters merges these)."""
+        out = []
+        for w in self.pool.live_workers():
+            snap = (w.counters or {}).get("decode")
+            if isinstance(snap, dict):
+                out.append(snap)
+        with self._lock:
+            out.extend(self._retired_decode)
+        return out
+
+    def counters(self) -> dict:
+        out = dict(PUMP_COUNTER_ZERO)
+        out.update(self.pool.counters())
+        with self._lock:
+            out["conns_dispatched"] = self._conns_dispatched
+        return out
+
+    def profile_summaries(self) -> List[dict]:
+        return self.pool.profile_summaries()
+
+    def worker_cpu_s(self) -> Dict[str, float]:
+        return self.pool.worker_cpu_s()
+
+    def trace_events(self) -> List[dict]:
+        return self.pool.trace_events()
+
+    def stop(self) -> None:
+        self.pool.stop()
+
+
+def _absorb_counters(w: _WorkerHandle, msg: dict) -> None:
+    """Adopt one worker counter push, carrying the previous span-ring export
+    forward when this push rode a no-trace tick (exports arrive ~1 Hz)."""
+    prev = w.counters or {}
+    if "trace" not in msg and isinstance(prev.get("trace"), list):
+        msg["trace"] = prev["trace"]
+    w.counters = msg
+    w.cpu_s = float(msg.get("process_cpu_s") or 0.0)
+
+
+def _replay_worker_events(gateway_id: str, worker: str, events) -> None:
+    """Re-record a worker's flight-recorder tail into the PARENT recorder
+    (tagged with the worker name) so one /api/v1/events scrape shows the
+    whole gateway — the mux-on-the-parent telemetry contract."""
+    if not events:
+        return
+    from skyplane_tpu_torch.obs import get_recorder
+
+    rec = get_recorder()
+    for ev in events:
+        if not isinstance(ev, dict):
+            continue
+        fields = {k: v for k, v in ev.items() if k not in ("seq", "ts", "kind")}
+        fields["pump_worker"] = worker
+        fields.setdefault("gateway", gateway_id)
+        rec.record(str(ev.get("kind", "pump.worker_event")), **fields)
+
+
+# ------------------------------------------------------------ sender pump
+
+
+class GatewaySenderPumpOperator:
+    """Factory indirection kept for import stability; see
+    :func:`make_sender_pump_operator`. (The real class derives from
+    GatewaySenderOperator and is created lazily to keep this module's import
+    graph light for spawn bootstrap.)"""
+
+    def __new__(cls, *args, **kwargs):  # pragma: no cover - thin alias
+        real = _sender_pump_class()
+        return real(*args, **kwargs)
+
+
+def _sender_pump_class():
+    """Build (once) the real pump sender-operator class. Deferred so that
+    importing skyplane_tpu_torch.gateway.pump in a spawn child does not drag in
+    the whole operator/ops import graph before the child resolves its
+    device."""
+    global _SENDER_PUMP_CLS
+    if _SENDER_PUMP_CLS is not None:
+        return _SENDER_PUMP_CLS
+
+    from skyplane_tpu_torch.chunk import DEFAULT_TENANT_ID, ChunkState
+    from skyplane_tpu_torch.gateway.operators.gateway_operator import GatewaySenderOperator
+    from skyplane_tpu_torch.gateway.operators.sender_wire import SENDER_WIRE_COUNTER_ZERO
+
+    class _GatewaySenderPumpOperator(GatewaySenderOperator):
+        """Multi-process sender: parent threads drain windows off the input
+        queue and ship them to worker processes; workers run the full framing
+        + codec + wire pipeline and stream terminal outcomes back. The
+        parent owns ALL chunk accounting (chunk store state, output queue,
+        scheduler tokens, tenant accounting) so the daemon's truth table is
+        unchanged: complete means sink-acked, un-acked requeues."""
+
+        def __init__(self, *args, pump_procs: int, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.pump_n = max(1, int(pump_procs))
+            # parent threads only ship descriptors — two are plenty; the
+            # configured connection count sizes the WORKER thread pools
+            self._child_threads = max(1, self.n_workers // self.pump_n)
+            self.n_workers = min(2, max(1, self.n_workers))
+            self._outstanding_cap = max(4 * self.window, 64)
+            self._acct_lock = lockcheck.wrap(threading.Lock(), "SenderPump._acct_lock")
+            self._outstanding: Dict[str, object] = {}  # chunk_id -> ChunkRequest
+            self._batches_shipped = 0
+            self._requeued_on_death = 0
+            self._retired_wire: List[dict] = []
+            self._retired_datapath: List[dict] = []
+            self.pool: Optional[PumpPool] = None
+            # parent-routed codec batches: workers RPC their chunk bytes to
+            # THIS process's device runner, whose kernels run on the card
+            # (the executor is built lazily on the first RPC)
+            self._batch_rpc_pool = None
+            self._batch_rpcs_served = 0
+            self._batch_rpc_errors = 0
+
+        # ---- lifecycle ----
+
+        def _pool_cfg(self) -> dict:
+            return {
+                "role": "sender",
+                "gateway_id": self.gateway_id or self.source_gateway_id or "gateway",
+                "region": self.region,
+                "handle": self.handle,
+                "chunk_dir": str(self.chunk_store.chunk_dir),
+                "threads": self._child_threads,
+                "target_gateway_id": self.target_gateway_id,
+                "target_host": self.target_host,
+                "target_control_port": self.target_control_port,
+                "codec_name": self._codec_name,
+                "dedup": self.dedup_index is not None,
+                "cdc": (self.cdc_params.min_bytes, self.cdc_params.avg_bytes, self.cdc_params.max_bytes),
+                "e2ee_key": list(self._e2ee_key) if self._e2ee_key else None,
+                "use_tls": self.use_tls,
+                "window": self.window,
+                "window_bytes": self.window_bytes,
+                "api_token": self.api_token,
+                "control_tls": self.control_tls,
+                "source_gateway_id": self.source_gateway_id,
+                "raw_forward": self.raw_forward,
+                "push_s": _env_float(PUMP_PUSH_S_ENV, 0.25),
+                # the parent owns a device batch runner: workers proxy codec
+                # batches to it instead of pinning private CPU backends
+                "parent_batch": self.processor.batch_runner is not None,
+            }
+
+        def start_workers(self) -> None:
+            self.pool = PumpPool(
+                "sender",
+                self.pump_n,
+                self._pool_cfg(),
+                gateway_id=self.gateway_id or "gateway",
+                on_message=self._on_worker_message,
+                on_death=self._on_worker_death,
+                on_pool_lost=self._on_pool_lost,
+            )
+            self.pool.start()
+            super().start_workers()
+
+        def stop_workers(self, timeout: float = 5.0) -> None:
+            super().stop_workers(timeout)
+            if self._batch_rpc_pool is not None:
+                self._batch_rpc_pool.shutdown(wait=False)
+            if self.pool is not None:
+                self.pool.stop(timeout_s=min(timeout, 5.0))
+                # whatever never reached a terminal outcome goes back to the
+                # queue (silent shutdown-requeue contract) with tokens freed
+                with self._acct_lock:
+                    leftovers = list(self._outstanding.values())
+                    self._outstanding.clear()
+                for req in leftovers:
+                    self.sched_release(req)
+                    self.input_queue.put_for_handle(self.handle, req)
+
+        # ---- shipping (parent worker threads) ----
+
+        def process_batch(self, batch, worker_id: int):
+            admitted = []
+            for req in batch:
+                # fair-share gate stays in the PARENT (workers have no
+                # scheduler): tokens hold from ship to terminal outcome
+                if not self.sched_acquire(req):
+                    self.input_queue.put_for_handle(self.handle, req)
+                    continue
+                admitted.append(req)
+            if not admitted:
+                return None
+            shipped = self._ship(admitted)
+            if not shipped:  # shutdown or pool lost: silent requeue
+                for req in admitted:
+                    self.sched_release(req)
+                    self.input_queue.put_for_handle(self.handle, req)
+            return None  # streaming operator: accounting lands as outcomes arrive
+
+        def _ship(self, reqs) -> bool:
+            payload = {"type": "batch", "reqs": [r.as_dict() for r in reqs]}
+            ids = [r.chunk.chunk_id for r in reqs]
+            # raw-forward fd crossing: for relay chunks (.hdr sidecar = staged
+            # bytes ARE the wire payload) the parent opens the staged file and
+            # SCM_RIGHTS-moves the fd with the batch, so the worker's sendfile
+            # is immune to a terminal-sweep GC racing the ship. Capped at 16
+            # fds per message (CtrlChannel.recv's ancillary bound); overflow
+            # chunks just open by path worker-side.
+            raw_fds: List[int] = []
+            raw_ids: List[str] = []
+            if self.raw_forward:
+                for r in reqs:
+                    if len(raw_fds) >= 16:
+                        break
+                    cpath = self.chunk_store.chunk_path(r.chunk.chunk_id)
+                    if not cpath.with_suffix(".hdr").exists():
+                        continue
+                    try:
+                        raw_fds.append(os.open(cpath, os.O_RDONLY))
+                    except OSError:
+                        continue
+                    raw_ids.append(r.chunk.chunk_id)
+            if raw_fds:
+                payload["n_fds"] = len(raw_fds)
+                payload["raw_fd_chunks"] = raw_ids
+            try:
+                return self._ship_locked(payload, ids, reqs, raw_fds)
+            finally:
+                # send_fds dups descriptors into the message; the parent's
+                # copies close here whether the ship landed or not
+                for fd in raw_fds:
+                    try:
+                        os.close(fd)
+                    except OSError:
+                        pass
+
+        def _ship_locked(self, payload: dict, ids, reqs, raw_fds) -> bool:
+            while not self.exit_flag.is_set() and not self.error_event.is_set():
+                w = self.pool.least_loaded(self._outstanding_cap)
+                if w is None:
+                    # every worker at its outstanding cap (or briefly zero
+                    # live workers mid-respawn): wait for a terminal outcome
+                    self.pool.slot_event.clear()
+                    self.pool.slot_event.wait(0.05)
+                    continue
+                with self._acct_lock:
+                    for r in reqs:
+                        self._outstanding[r.chunk.chunk_id] = r
+                    w.outstanding.update(ids)
+                    self._batches_shipped += 1
+                if w.chan.send(payload, fds=tuple(raw_fds)):
+                    return True
+                # send raced the worker's death: roll back; the reader's
+                # death path may also be requeueing — _take_outstanding is
+                # idempotent, so the chunk lands back exactly once. The
+                # batch is now fully handled (requeued here or by the death
+                # cleanup): return True so the caller does NOT requeue it a
+                # second time, and do NOT loop — re-shipping the same
+                # payload would double-dispatch every chunk in the window
+                rolled = self._take_outstanding(w, ids)
+                for r in rolled:
+                    self.sched_release(r)
+                    self.input_queue.put_for_handle(self.handle, r)
+                if rolled:
+                    logger.fs.warning(
+                        f"[{self.handle}] ship to {w.name} failed mid-send; {len(rolled)} chunk(s) requeued"
+                    )
+                return True
+            return False
+
+        def _take_outstanding(self, w: _WorkerHandle, ids) -> list:
+            """Atomically claim chunk ids off the outstanding maps; each id
+            is returned to exactly one caller (terminal message vs death
+            cleanup vs failed ship can race — idempotency lives here)."""
+            out = []
+            with self._acct_lock:
+                for cid in ids:
+                    req = self._outstanding.pop(cid, None)
+                    w.outstanding.discard(cid)
+                    if req is not None:
+                        out.append(req)
+            return out
+
+        # ---- worker messages (pool reader threads) ----
+
+        def _on_worker_message(self, w: _WorkerHandle, msg: dict, fds) -> None:
+            kind = msg.get("type")
+            if kind == "status":
+                self._on_terminal(w, msg)
+            elif kind == "batch_rpc":
+                self._serve_batch_rpc(w, msg)
+            elif kind == "counters":
+                _absorb_counters(w, msg)
+                for ev in msg.get("window_events") or []:
+                    if isinstance(ev, dict):
+                        self.note_window_event(ev, float(ev.get("seconds") or 0.0))
+                _replay_worker_events(self.gateway_id or "gateway", w.name, msg.get("events"))
+            elif kind == "fatal":
+                self.error_queue.put(f"[pump sender worker {w.name}] {msg.get('detail', '')}")
+                self.error_event.set()
+
+        def _on_terminal(self, w: _WorkerHandle, msg: dict) -> None:
+            cid = msg.get("chunk_id")
+            taken = self._take_outstanding(w, [cid])
+            if not taken:
+                return  # already handled (death requeue raced the last push)
+            req = taken[0]
+            state = msg.get("state")
+            if state == ChunkState.complete.to_short_str():
+                self.chunk_store.log_chunk_state(req, ChunkState.complete, self.handle, w.idx)
+                if self.output_queue is not None:
+                    self.output_queue.put(req)
+                if self.tenant_registry is not None:
+                    self.tenant_registry.note_delivered(
+                        req.chunk.tenant_id or DEFAULT_TENANT_ID, req.chunk.chunk_length_bytes
+                    )
+            else:
+                self.chunk_store.log_chunk_state(req, ChunkState.failed, self.handle, w.idx)
+            self.sched_release(req)
+            self.pool.slot_event.set()
+
+        def _serve_batch_rpc(self, w: _WorkerHandle, msg: dict) -> None:
+            """Dispatch one worker codec batch onto the parent's device
+            runner. Runs the device call on an executor, NOT the pool reader
+            thread: concurrent RPCs from N workers must overlap so they land
+            in the same runner window and fill one batch on the card."""
+            rpc_id = msg.get("rpc_id")
+            raw = msg.pop("_raw", b"") or b""
+            with self._acct_lock:
+                if self._batch_rpc_pool is None:
+                    from concurrent.futures import ThreadPoolExecutor
+
+                    runner = self.processor.batch_runner
+                    self._batch_rpc_pool = ThreadPoolExecutor(
+                        max_workers=max(2, getattr(runner, "max_batch", 8)),
+                        thread_name_prefix=f"{self.handle}-batch-rpc",
+                    )
+                pool = self._batch_rpc_pool
+            try:
+                pool.submit(self._run_batch_rpc, w, rpc_id, raw)
+            except RuntimeError:  # executor shut down: stopping — drop; the
+                pass  # worker's 600s backstop / parent-death fallback covers it
+
+        def _run_batch_rpc(self, w: _WorkerHandle, rpc_id, raw: bytes) -> None:
+            import numpy as np
+
+            try:
+                ends, fps = self.processor.batch_runner.cdc_and_fps(np.frombuffer(raw, np.uint8))
+                with self._acct_lock:
+                    self._batch_rpcs_served += 1
+                reply = {"type": "batch_result", "rpc_id": rpc_id, "ends": np.asarray(ends).tolist()}
+                w.chan.send(reply, raw=b"".join(fps))  # False = worker died; its pending RPC died with it
+            except Exception as err:  # noqa: BLE001 — the worker must unblock and fall back
+                with self._acct_lock:
+                    self._batch_rpc_errors += 1
+                w.chan.send({"type": "batch_result", "rpc_id": rpc_id, "error": repr(err)})
+
+        def _on_worker_death(self, w: _WorkerHandle) -> None:
+            # the shard-accounting truth table: outcomes already streamed
+            # back stand (acked chunks stay complete); everything still
+            # outstanding on the dead worker requeues UNCOUNTED: a worker
+            # crash is not the chunk's fault, so it never burns the
+            # per-chunk retry budget
+            with self._acct_lock:
+                ids = list(w.outstanding)
+            reqs = self._take_outstanding(w, ids)
+            for req in reqs:
+                self.sched_release(req)
+                self.input_queue.put_for_handle(self.handle, req)
+            if reqs:
+                logger.fs.warning(
+                    f"[{self.handle}] worker {w.name} died with {len(reqs)} chunk(s) in flight; requeued uncounted"
+                )
+            with self._acct_lock:
+                self._requeued_on_death += len(reqs)
+            for key, bucket in (("wire", self._retired_wire), ("datapath", self._retired_datapath)):
+                snap = (w.counters or {}).get(key)
+                if isinstance(snap, dict):
+                    with self._acct_lock:
+                        bucket.append(snap)
+
+        def _on_pool_lost(self, msg: str) -> None:
+            self.error_queue.put(f"[{self.handle}] {msg}")
+            self.error_event.set()
+
+        # ---- merged telemetry ----
+
+        def _worker_snaps(self, key: str) -> List[dict]:
+            snaps = []
+            if self.pool is not None:
+                for w in self.pool.live_workers():
+                    snap = (w.counters or {}).get(key)
+                    if isinstance(snap, dict):
+                        snaps.append(snap)
+            with self._acct_lock:
+                snaps.extend(self._retired_wire if key == "wire" else self._retired_datapath)
+            return snaps
+
+        def wire_counters(self) -> dict:
+            out = merge_numeric_counters(dict(SENDER_WIRE_COUNTER_ZERO), self._worker_snaps("wire"), rates=())
+            with self._events_dropped_lock:
+                out["profile_events_dropped"] += self._events_dropped
+            return out
+
+        def datapath_counters(self) -> dict:
+            return merge_numeric_counters(super().datapath_counters(), self._worker_snaps("datapath"))
+
+        def pump_counters(self) -> dict:
+            out = dict(PUMP_COUNTER_ZERO)
+            if self.pool is not None:
+                out.update(self.pool.counters())
+            with self._acct_lock:
+                out["batches_shipped"] = self._batches_shipped
+                out["chunks_requeued_on_death"] = self._requeued_on_death
+                out["chunks_outstanding"] = len(self._outstanding)
+                out["batch_rpcs_served"] = self._batch_rpcs_served
+                out["batch_rpc_errors"] = self._batch_rpc_errors
+            return out
+
+        def profile_summaries(self) -> List[dict]:
+            return self.pool.profile_summaries() if self.pool is not None else []
+
+        def worker_cpu_s(self) -> Dict[str, float]:
+            return self.pool.worker_cpu_s() if self.pool is not None else {}
+
+        def trace_events(self) -> List[dict]:
+            return self.pool.trace_events() if self.pool is not None else []
+
+        def retarget(self, new_target_gateway_id: str, host: str, control_port: int, dedup_index=None) -> int:
+            n = super().retarget(new_target_gateway_id, host, control_port, dedup_index=dedup_index)
+            if self.pool is not None:
+                self.pool.broadcast(
+                    {
+                        "type": "retarget",
+                        "new_target_gateway_id": new_target_gateway_id,
+                        "host": host,
+                        "control_port": int(control_port),
+                    }
+                )
+            return n
+
+    globals()["_SENDER_PUMP_CLS"] = _GatewaySenderPumpOperator
+    return _GatewaySenderPumpOperator
+
+
 _SENDER_PUMP_CLS = None
+
+
+def make_sender_pump_operator(*args, **kwargs):
+    """Construct the pump sender operator (daemon ``_instantiate`` hook)."""
+    return _sender_pump_class()(*args, **kwargs)
 
 
 def is_pump_sender(op) -> bool:
     return _SENDER_PUMP_CLS is not None and isinstance(op, _SENDER_PUMP_CLS)
+
+
+# ---------------------------------------------------------- worker process
+
+
+#: the device a pump worker builds its data path on: "cpu" (the default: the
+#: card stays the parent's and the worker never creates a CUDA context),
+#: "cuda" or "cuda:N"
+PUMP_CHILD_PLATFORM_ENV = "SKYPLANE_TPU_PUMP_CHILD_PLATFORM"
+
+
+def _child_device():
+    """The worker's device from ``SKYPLANE_TPU_PUMP_CHILD_PLATFORM`` (``cpu``
+    when unset or empty). The daemon's ``SKYPLANE_GATEWAY_DEVICE``, which
+    spawn children inherit, is not read here: it names the parent's card."""
+    from skyplane_tpu_torch.ops.backend import resolve_device
+
+    dev = resolve_device(os.environ.get(PUMP_CHILD_PLATFORM_ENV, "cpu").strip() or "cpu")
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def _pump_worker_main(cfg: dict, ctrl_sock: socket.socket) -> None:
+    """Spawn-child entry point. Resolves the worker's device BEFORE any
+    data-path object is built (pump workers run the CPU paths by default: on
+    a GPU gateway the card belongs to the parent's batch runner), then arms
+    the inherited observability surface and dispatches on role."""
+    chan = CtrlChannel(ctrl_sock)
+    try:
+        cfg = dict(cfg)
+        cfg["device"] = _child_device()
+        # env inheritance through the spawn context arms the profiler, the
+        # lock witness, the tracer, and the fault injector in this child
+        # exactly as in the parent
+        from skyplane_tpu_torch.obs import get_profiler
+
+        get_profiler().ensure_started()
+        if cfg.get("role") == "receiver":
+            _receiver_worker(cfg, chan)
+        else:
+            _sender_worker(cfg, chan)
+    except SystemExit:
+        raise
+    except BaseException:  # noqa: BLE001 — anything else is a worker-fatal to report
+        import traceback
+
+        chan.send({"type": "fatal", "detail": traceback.format_exc()})
+        os._exit(1)
+    os._exit(0)
+
+
+def _maybe_crash(cfg: dict) -> None:
+    """Evaluate the ``pump.worker_crash`` fault point (first-generation
+    workers only — see PumpPool._spawn_locked)."""
+    if not cfg.get("crash_armed"):
+        return
+    from skyplane_tpu_torch.faults import get_injector
+
+    inj = get_injector()
+    if inj.enabled and inj.fire(PUMP_CRASH_POINT):
+        logger.fs.warning(f"[pump-worker {cfg.get('worker_name')}] injected worker crash ({PUMP_CRASH_POINT})")
+        os._exit(86)
+
+
+def _telemetry_snapshot(cfg: dict, extra: dict, ev_cursor: List[int], include_trace: bool = True) -> dict:
+    """One cumulative counter push: role-specific counters plus the shared
+    telemetry surface (profiler summary, process CPU, recorder tail, and —
+    when the env-armed tracer is on AND ``include_trace`` — this worker's
+    span-ring export, so the parent's /api/v1/trace covers the whole
+    gateway. Exporting the ring walks every buffered span, so the pushers
+    ride it at ~1 Hz rather than every counter tick; the parent keeps only
+    the latest snapshot anyway)."""
+    from skyplane_tpu_torch.obs import get_profiler, get_recorder, get_tracer
+
+    rec = get_recorder()
+    events = rec.events_since(ev_cursor[0], limit=256)
+    if events:
+        ev_cursor[0] = events[-1]["seq"]
+    prof = get_profiler()
+    tracer = get_tracer()
+    msg = {
+        "type": "counters",
+        "worker": cfg.get("worker_name"),
+        "process_cpu_s": round(time.process_time(), 6),
+        "profile": prof.summary() if getattr(prof, "enabled", False) else None,
+        "events": events,
+        "runtime": _runtime_report(cfg),
+    }
+    if include_trace and tracer.enabled:
+        msg["trace"] = tracer.export().get("traceEvents")
+    msg.update(extra)
+    return msg
+
+
+def _runtime_report(cfg: dict) -> dict:
+    """What this worker runs on: its device, whether it created a CUDA
+    context, and whether jax or the JAX package was ever imported into it
+    (the port must load neither)."""
+    import sys
+
+    import torch
+
+    return {
+        "device": str(cfg.get("device")),
+        "cuda_initialized": bool(torch.cuda.is_initialized()),
+        "jax_loaded": "jax" in sys.modules,
+        "jax_package_loaded": any(m == "skyplane_tpu" or m.startswith("skyplane_tpu.") for m in list(sys.modules)),
+    }
+
+
+def _trace_stride(push_s: float) -> int:
+    """Counter ticks between span-ring exports (~1 Hz)."""
+    return max(1, int(round(1.0 / max(0.05, push_s))))
+
+
+def _receiver_worker(cfg: dict, chan: CtrlChannel) -> None:
+    import queue as queue_mod
+    from pathlib import Path
+
+    from skyplane_tpu_torch.gateway.chunk_store import ChunkStore
+    from skyplane_tpu_torch.gateway.operators.gateway_receiver import GatewayReceiver
+    from skyplane_tpu_torch.ops.cdc import CDCParams
+    from skyplane_tpu_torch.ops.dedup import SegmentStore
+
+    idx = int(cfg.get("worker_idx", 0))
+    error_event = threading.Event()
+    # bounded in practice: the first error stops the worker, so depth is
+    # capped by its thread count
+    error_queue: "queue_mod.Queue[str]" = queue_mod.Queue()
+    store = ChunkStore(cfg["chunk_dir"], clean_stale=False)
+    segment_store = None
+    if cfg.get("dedup"):
+        # per-worker shard of the segment store: its own spill directory and
+        # a 1/N share of the configured byte budgets. A REF whose literal
+        # landed at a SIBLING shard misses here and heals through the
+        # in-band NACK -> literal-resend path (docs/wire_protocol.md).
+        n = max(1, int(cfg.get("procs", 1)))
+        segment_store = SegmentStore(
+            max_bytes=max(64 << 20, (_env_int("SKYPLANE_TPU_SEGSTORE_MB", 4 << 10, minimum=1) << 20) // n),
+            spill_dir=Path(cfg["chunk_dir"]) / "segments" / f"pump{idx}",
+            spill_max_bytes=max(64 << 20, (_env_int("SKYPLANE_TPU_SEGSTORE_SPILL_MB", 32 << 10, minimum=1) << 20) // n),
+            persistent_spill=bool(cfg.get("persist_dedup")),
+        )
+    fabric = None
+    if segment_store is not None:
+        from skyplane_tpu_torch.dedup_fabric import fabric_from_env
+
+        # worker-side dedup fabric: bootstrapped from the inherited
+        # SKYPLANE_TPU_FABRIC env (spawn-context workers re-read os.environ);
+        # dynamic membership arrives via the "fabric" ctrl message below. The
+        # PARENT gateway id keeps owner==self short-circuits correct for
+        # segments this gateway owns — unconfigured, fetch/note_put are inert.
+        fabric = fabric_from_env(str(cfg.get("gateway_id", "gateway")))
+        fabric.local_store = segment_store
+        segment_store.fabric = fabric
+    cmin, cavg, cmax = cfg.get("cdc") or (4 * 1024, 16 * 1024, 64 * 1024)
+    key = bytes(cfg["e2ee_key"]) if cfg.get("e2ee_key") else None
+    tally = _TenantTally()  # per-tenant decode/nack attribution, replayed by the parent
+    receiver = GatewayReceiver(
+        region=cfg.get("region", "local:local"),
+        chunk_store=store,
+        error_event=error_event,
+        error_queue=error_queue,
+        use_tls=bool(cfg.get("use_tls")),
+        e2ee_key=key,
+        dedup=bool(cfg.get("dedup")),
+        segment_store=segment_store,
+        raw_forward=bool(cfg.get("raw_forward")),
+        cdc_params=CDCParams(min_bytes=cmin, avg_bytes=cavg, max_bytes=cmax),
+        ref_wait_timeout=float(cfg.get("ref_wait_timeout", 10.0)),
+        decode_workers=int(cfg.get("decode_workers", 2)),
+        tenant_registry=tally,
+        # spans carry the PARENT gateway id: the collector's per-gateway
+        # trace regrouping must see one gateway row across all its processes
+        gateway_id=cfg.get("gateway_id", "gateway"),
+        ssl_cert_files=tuple(cfg["ssl_cert_files"]) if cfg.get("ssl_cert_files") else None,
+        device=cfg["device"],
+    )
+    stop_evt = threading.Event()
+    push_s = float(cfg.get("push_s", 0.25))
+    ev_cursor = [0]
+
+    stride = _trace_stride(push_s)
+    tick = [0]
+
+    def decode_snapshot() -> dict:
+        """Decode counters with this worker's fabric counters folded in —
+        merge_numeric_counters on the parent sums keys absent from the base
+        schema, so peer-fetch hits/misses/timeouts surface gateway-wide."""
+        out = dict(receiver.decode_counters())
+        if fabric is not None:
+            out.update(fabric.counters())
+        return out
+
+    def pusher() -> None:
+        while not stop_evt.is_set():
+            _maybe_crash(cfg)
+            tick[0] += 1
+            if not chan.send(
+                _telemetry_snapshot(
+                    cfg,
+                    {"decode": decode_snapshot(), "tenants": tally.snapshot()},
+                    ev_cursor,
+                    include_trace=tick[0] % stride == 0,
+                )
+            ):
+                stop_evt.set()  # parent gone: wind down
+                return
+            if error_event.is_set():
+                detail = ""
+                try:
+                    detail = error_queue.get_nowait()
+                except queue_mod.Empty:
+                    pass
+                chan.send({"type": "fatal", "detail": detail or "receiver worker error"})
+                os._exit(1)
+            stop_evt.wait(push_s)
+
+    threading.Thread(target=pusher, name=f"pump-push-{idx}", daemon=True).start()
+    while not stop_evt.is_set():
+        got = chan.recv()
+        if got is None:
+            break  # parent died / channel closed
+        msg, fds = got
+        kind = msg.get("type")
+        if kind == "conn" and fds:
+            _maybe_crash(cfg)
+            conn = socket.socket(fileno=fds[0])
+            receiver.adopt_connection(conn, int(msg.get("port") or 0))
+            fds.clear()  # adopted: the reader must not close it
+        elif kind == "fabric":
+            # membership pushed to the parent daemon fans out here
+            if fabric is not None and isinstance(msg.get("membership"), dict):
+                fabric.configure(msg["membership"])
+        elif kind == "stop":
+            break
+    stop_evt.set()
+    # final snapshot so the parent's merged counters include everything this
+    # worker landed, then let the decode pool wind down
+    chan.send(_telemetry_snapshot(cfg, {"decode": decode_snapshot(), "tenants": tally.snapshot()}, ev_cursor))
+    if fabric is not None:
+        fabric.close()
+    receiver.stop_all()
+
+
+def _sender_worker(cfg: dict, chan: CtrlChannel) -> None:
+    import queue as queue_mod
+
+    from skyplane_tpu_torch.chunk import ChunkRequest
+    from skyplane_tpu_torch.gateway.chunk_store import ChunkStore
+    from skyplane_tpu_torch.gateway.gateway_queue import GatewayQueue
+    from skyplane_tpu_torch.gateway.operators.gateway_operator import GatewaySenderOperator
+    from skyplane_tpu_torch.ops.cdc import CDCParams
+
+    error_event = threading.Event()
+    # bounded in practice: the first error stops the worker, so depth is
+    # capped by its thread count
+    error_queue: "queue_mod.Queue[str]" = queue_mod.Queue()
+    inbox = GatewayQueue()
+    cmin, cavg, cmax = cfg.get("cdc") or (4 * 1024, 16 * 1024, 64 * 1024)
+    key = bytes(cfg["e2ee_key"]) if cfg.get("e2ee_key") else None
+    store = ChunkStore(cfg["chunk_dir"], clean_stale=False)
+    # parent-routed batches: when the parent daemon owns a device batch
+    # runner, this worker's codec batches proxy to it over the CtrlChannel, so
+    # N framing cores feed ONE card. Otherwise the processor runs on this
+    # worker's own device (see _pump_worker_main).
+    batch_runner = (
+        RemoteBatchRunner(chan, CDCParams(min_bytes=cmin, avg_bytes=cavg, max_bytes=cmax))
+        if cfg.get("parent_batch")
+        else None
+    )
+    op = GatewaySenderOperator(
+        handle=cfg["handle"],
+        region=cfg.get("region", "local:local"),
+        input_queue=inbox,
+        output_queue=None,  # the PARENT forwards completed chunks downstream
+        error_event=error_event,
+        error_queue=error_queue,
+        chunk_store=store,
+        n_workers=int(cfg.get("threads", 1)),
+        gateway_id=cfg.get("gateway_id"),
+        target_gateway_id=cfg["target_gateway_id"],
+        target_host=cfg["target_host"],
+        target_control_port=int(cfg["target_control_port"]),
+        codec_name=cfg.get("codec_name", "none"),
+        dedup=bool(cfg.get("dedup")),
+        cdc_params=CDCParams(min_bytes=cmin, avg_bytes=cavg, max_bytes=cmax),
+        e2ee_key=key,
+        use_tls=bool(cfg.get("use_tls")),
+        batch_runner=batch_runner,
+        window=int(cfg.get("window", 16)),
+        window_bytes=int(cfg.get("window_bytes", 256 << 20)),
+        api_token=cfg.get("api_token"),
+        control_tls=bool(cfg.get("control_tls")),
+        source_gateway_id=cfg.get("source_gateway_id"),
+        scheduler=None,  # fair-share tokens are held by the parent
+        tenant_registry=None,
+        raw_forward=bool(cfg.get("raw_forward")),
+        device=cfg["device"],
+    )
+    # cross-shard NACK attribution (docs/dedup-fabric.md): a discard of a
+    # fp this PRIVATE partition only knew via fleet gossip means stale
+    # cross-shard warmth — counted locally, summed by the parent's merged
+    # wire counters (merge_numeric_counters passes non-schema keys through)
+    cross_shard_nacks = [0]
+    if op.dedup_index is not None:
+        op.dedup_index.on_cross_shard_nack = lambda _fp: cross_shard_nacks.__setitem__(0, cross_shard_nacks[0] + 1)
+
+    def wire_snapshot() -> dict:
+        out = dict(op.wire_counters())
+        out["cross_shard_nacks"] = cross_shard_nacks[0]
+        return out
+
+    op.start_workers()
+    stop_evt = threading.Event()
+    push_s = float(cfg.get("push_s", 0.25))
+    ev_cursor = [0]
+
+    def forward_status() -> None:
+        """Stream terminal chunk outcomes to the parent — the accounting
+        control channel that keeps the tracker truth table exact across the
+        process boundary (in_progress records stay local; the parent logged
+        those at dispatch)."""
+        while True:
+            try:
+                rec = store.chunk_status_queue.get(timeout=0.2)
+            except queue_mod.Empty:
+                if stop_evt.is_set():
+                    return
+                continue
+            if rec.get("state") in ("complete", "failed"):
+                if not chan.send({"type": "status", "chunk_id": rec["chunk_id"], "state": rec["state"]}):
+                    stop_evt.set()
+                    return
+
+    stride = _trace_stride(push_s)
+    tick = [0]
+
+    def pusher() -> None:
+        while not stop_evt.is_set():
+            window_events = []
+            while len(window_events) < 256:
+                try:
+                    window_events.append(op.socket_profile_events.get_nowait())
+                except queue_mod.Empty:
+                    break
+            tick[0] += 1
+            snap = _telemetry_snapshot(
+                cfg,
+                {
+                    "wire": wire_snapshot(),
+                    "datapath": op.processor.stats.as_dict(),
+                    "window_events": window_events,
+                },
+                ev_cursor,
+                include_trace=tick[0] % stride == 0,
+            )
+            if not chan.send(snap):
+                stop_evt.set()
+                return
+            if error_event.is_set():
+                detail = ""
+                try:
+                    detail = error_queue.get_nowait()
+                except queue_mod.Empty:
+                    pass
+                chan.send({"type": "fatal", "detail": detail or "sender worker error"})
+                os._exit(1)
+            stop_evt.wait(push_s)
+
+    threading.Thread(target=forward_status, name="pump-status", daemon=True).start()
+    threading.Thread(target=pusher, name="pump-push", daemon=True).start()
+    while not stop_evt.is_set():
+        got = chan.recv()
+        if got is None:
+            break
+        msg, fds = got
+        kind = msg.get("type")
+        if kind == "batch":
+            _maybe_crash(cfg)
+            if fds:
+                # staged-file fds the parent opened ride the batch message;
+                # the store adopts them (ownership moves) so the raw frame
+                # built later splices the parent's still-open descriptor
+                raw_ids = msg.get("raw_fd_chunks") or []
+                for cid, fd in zip(raw_ids, fds):
+                    store.adopt_raw_fd(cid, fd)
+                for fd in fds[len(raw_ids):]:  # malformed surplus: don't leak
+                    try:
+                        os.close(fd)
+                    except OSError:
+                        pass
+                fds.clear()  # adopted: the reader must not close them
+            for d in msg.get("reqs") or []:
+                inbox.put(ChunkRequest.from_dict(d))
+        elif kind == "batch_result":
+            if batch_runner is not None:
+                batch_runner.resolve(msg)
+        elif kind == "retarget":
+            op.retarget(msg["new_target_gateway_id"], msg["host"], int(msg["control_port"]))
+        elif kind == "fabric_fps":
+            # gossip-absorbed fingerprints from the parent: warm this
+            # worker's PRIVATE dedup partition so the next send REFs instead
+            # of shipping the literal (stale entries heal via NACK)
+            if op.dedup_index is not None:
+                batch = []
+                for item in msg.get("fps") or ():
+                    try:
+                        fp = bytes.fromhex(item[0])
+                        if len(fp) == 16:
+                            batch.append((fp, int(item[1] or 0)))
+                    except (ValueError, TypeError, IndexError):
+                        continue
+                if batch:
+                    op.dedup_index.add_remote(batch, origin=str(msg.get("origin") or "?"))
+        elif kind == "stop":
+            break
+    stop_evt.set()
+    op.stop_workers(timeout=3.0)
+    # drain the last terminal records synchronously so a clean stop never
+    # strands a complete chunk un-reported
+    while True:
+        try:
+            rec = store.chunk_status_queue.get_nowait()
+        except queue_mod.Empty:
+            break
+        if rec.get("state") in ("complete", "failed"):
+            chan.send({"type": "status", "chunk_id": rec["chunk_id"], "state": rec["state"]})
+    chan.send(
+        _telemetry_snapshot(
+            cfg, {"wire": wire_snapshot(), "datapath": op.processor.stats.as_dict(), "window_events": []}, ev_cursor
+        )
+    )

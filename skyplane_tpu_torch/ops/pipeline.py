@@ -244,7 +244,11 @@ class DataPathProcessor:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if batch_runner is not None and batch_runner.device != self.device:
+        # a remote runner (a pump worker's proxy for the parent daemon's
+        # runner, gateway/pump.py) has no device here: its kernels run in the
+        # parent, on the parent's card
+        remote = batch_runner is not None and getattr(batch_runner, "remote", False)
+        if batch_runner is not None and not remote and batch_runner.device != self.device:
             raise ValueError(f"batch runner on {batch_runner.device}, processor on {self.device}")
         self.codec: CodecSpec = get_codec(codec_name)
         self.dedup = dedup
@@ -272,6 +276,8 @@ class DataPathProcessor:
         ``.ends`` are final at once; ``.fps()`` may block on the readback, so
         callers cut recipe spans in between."""
         if self.batch_runner is not None:
+            # first, before any device work: a pump worker's remote runner
+            # ships the chunk to the parent daemon's runner on the card
             if self.batch_runner.cdc_params != self.cdc_params:
                 raise ValueError("batch runner CDC params diverge from the processor's")
             handle = self.batch_runner.submit(arr)

@@ -334,15 +334,12 @@ def test_cuda_device_without_a_card_raises(tmp_path):
         _receive_daemon(tmp_path)
 
 
-@pytest.mark.parametrize("case", ["spmd_on", "pump_procs", "read_object_store", "write_object_store"])
+@pytest.mark.parametrize("case", ["spmd_on", "read_object_store", "write_object_store"])
 def test_configurations_waiting_for_later_slices_raise(tmp_path, monkeypatch, case):
     prog = None
     if case == "spmd_on":
         monkeypatch.setenv("SKYPLANE_TPU_SPMD", "on")
         err, match = NotImplementedError, "queue 1 item 6"
-    elif case == "pump_procs":
-        monkeypatch.setenv("SKYPLANE_TPU_PUMP_PROCS", "2")
-        err, match = NotImplementedError, "pump"
     else:
         op = {"op_type": case, "bucket_name": "b", "bucket_region": "aws:us-east-1", "children": []}
         prog, err, match = program(op), ValueError, "queue 1 item 7"

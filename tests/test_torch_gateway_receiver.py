@@ -123,10 +123,23 @@ def test_receiver_acks_and_files_equal_the_reference(tmp_path, decode_workers):
 
 
 def test_receiver_refuses_the_pump(tmp_path):
+    """``enable_pump`` no longer refuses: it hands the receiver to two spawned
+    pump workers, which report, retires the parent decode pool, and
+    ``stop_all`` stops the workers."""
+    import time
+
     ns = pkg_ns("port")
     r = ns.GatewayReceiver("local:local", ns.ChunkStore(str(tmp_path)), threading.Event(), queue.Queue(), use_tls=False, device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="pump"):
-            r.enable_pump(2)
+        r.enable_pump(2)
+        assert r.pump is not None and r._decode_threads == []
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not (
+            len(r.pump.pool.live_workers()) == 2 and all(w.counters for w in r.pump.pool.live_workers())
+        ):
+            time.sleep(0.05)
+        assert [w.counters["runtime"]["device"] for w in r.pump.pool.live_workers()] == ["cpu", "cpu"]
+        assert r.pump.counters()["workers_alive"] == 2
     finally:
         r.stop_all()
+    assert r.pump is not None and not any(w.proc.is_alive() for w in r.pump.pool._workers)

@@ -207,17 +207,17 @@ _COPIED = [
     "gateway.operators.gateway_receiver", "gateway.operators.sender_wire", "gateway.operators.gateway_operator",
     "planner.pricing", "gateway.gateway_program", "gateway.preempt", "gateway.gateway_daemon_api",
     "gateway.gateway_daemon", "tenancy", "tenancy.scheduler", "tenancy.registry", "tenancy.persistent_index",
-    "dedup_fabric", "dedup_fabric.ring", "dedup_fabric.fabric", "dedup_fabric.exchange",
+    "dedup_fabric", "dedup_fabric.ring", "dedup_fabric.fabric", "dedup_fabric.exchange", "gateway.pump",
 ]
 # names the port adds (its own control client, the scheduler's resource names,
-# the pump stand-in, the daemon's device and refusals) or leaves out (the
-# object-store operators, queue 1 item 7)
+# the daemon's device and refusals, the pump worker's device and runtime
+# report) or leaves out (the object-store operators, queue 1 item 7)
 _ADDED = {
     "gateway.control_auth": {"ControlRequestError", "ControlResponse", "ControlSession", "ControlTimeout"},
     "gateway.preempt": {"ControlRequestError", "control_session"},
     "gateway.gateway_daemon": {"OBJ_STORE_OPS", "resolve_device", "spmd_mode"},
     "gateway.operators.gateway_operator": {"ControlRequestError", "RES_CHUNK_SLOTS", "RES_WIRE_BYTES"},
-    "gateway.operators.gateway_receiver": {"_pump_not_ported"},
+    "gateway.pump": {"PUMP_CHILD_PLATFORM_ENV", "_child_device", "_runtime_report"},
 }
 _LEFT_OUT = {
     "gateway.operators.gateway_operator": {"GatewayObjStoreReadOperator", "GatewayObjStoreWriteOperator", "_ObjStoreOperator"},
