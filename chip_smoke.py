@@ -211,9 +211,39 @@ Phases (any failure exits non-zero before the final ``ok`` line):
    non-zero or prints no gateway, tenant, events or report, the trace holds
    spans of fewer than both gateways, or ``serve`` outlives SIGTERM by 30 s.
 
+11. The multi-device data path (slice 13). Launch counts are zeroed just
+   before its drive and read just after: (a)'s first step over each mesh,
+   then (b). (a) ``make_spmd_datapath`` over meshes 1x1, 1x2, 2x2 and 2x4
+   (data x seq) on phase 5's rows (B = 8 x 8 MiB, block 512, stride 64 KiB,
+   mask bits 16), position i on ``cuda:(i % device_count)`` (on one card every
+   position is ``cuda:0``: a logical mesh, its positions one after another).
+   Each mesh's step launches K-A', K-E and K-D once a position (K-A' with a
+   halo on every position past a row's first seq shard), its candidates,
+   tags and fingerprints equal ``datapath_step``'s bit for bit, its n_lit sum
+   to the step's, and every row's literals decode byte-identical shard by
+   shard on the host; its time by CUDA events beside ``datapath_step``'s.
+   K-A' with a halo equals its plain version on the 2x4 mesh's halo shards
+   and on adversarial halos (a shard boundary inside a run of zeros and of
+   0x5A, a candidate on a shard's first byte); its time beside its bound and
+   beside K-A' without the halo, and the times of a position's slab copy and
+   halo copy. (b) ``dryrun_multichip(4)`` with ``SKYPLANE_TPU_SPMD_CHECK=1``:
+   the step at the reference's shapes, then 8 chunks of 8 MiB through
+   ``DataPathProcessor`` (codec ``tpu``, dedup) over a meshed runner (2x2),
+   wire bytes equal to the host path's and REF segments on the
+   near-duplicate; K-AB and K-C launches per position. (c) A port daemon in
+   process with ``SKYPLANE_TPU_SPMD=on`` builds its runner: unsharded on one
+   card, a mesh over every card on 2^k >= 2 cards. Then the meshed runner's
+   Gbps at 1, 2, 4 and 8 positions (``tools/spmd_scaling.py``), each point
+   byte-identical to the host path first, a point whose positions repeat a
+   card labelled as not scaling. (d) On 2 or more cards: a launch on the last
+   card leaves the current device unchanged, and (a) and (b) again over
+   distinct cards; elsewhere one line says why it did not run.
+
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
-line describing every kernel (``launches`` from phase 3 (b) and phase 5;
-``launches_cli`` from phase 10 (b)), and ``{"ok": true, "device": {...}}``.
+line describing every kernel (``launches`` from phase 3 (b) and phase 5, and
+for ``gear_mask_halo``, K-A' in halo mode, from phase 11; ``launches_cli``
+from phase 10 (b); ``launches_spmd`` from phase 11's drive), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -582,20 +612,6 @@ def check_kernels(dev, chunks, params):
     return errs, t, bounds
 
 
-def host_wire(chunk: bytes, index, codec, params):
-    """What ``DataPathProcessor.process`` sends, computed on the host path
-    (CDC + fingerprints by ``cdc_and_fps_host``, no device: the native
-    library or numpy, as ``native.datapath`` is set)."""
-    from skyplane_tpu_torch.ops.cdc import cdc_and_fps_host
-    from skyplane_tpu_torch.ops.dedup import build_recipe
-
-    ends, fps = cdc_and_fps_host(np.frombuffer(chunk, np.uint8), params)
-    starts = np.concatenate([[0], ends[:-1]])
-    segments = [(fp, chunk[s:e]) for fp, s, e in zip(fps, starts.tolist(), ends.tolist())]
-    wire, n_ref, _, new_fps, _ = build_recipe(segments, index, codec.encode)
-    return wire, n_ref, new_fps
-
-
 class HostSplit:
     """Host time of the sender path by part, from wrappers installed around
     the package's functions for one pass (nothing is counted inside the
@@ -740,6 +756,7 @@ def sender_pass(dev, runner, chunks, params, codec: str, native_on: bool, label:
 def check_sample(dev, runner, chunks, params, codec_name: str) -> None:
     """Sampled wire bytes: the device path's equal the host path's with the
     native library on and with it off (fresh indexes, one chunk at a time)."""
+    from skyplane_tpu_torch.entry import host_wire
     from skyplane_tpu_torch.native import datapath as native_dp
     from skyplane_tpu_torch.ops.codecs import get_codec
     from skyplane_tpu_torch.ops.dedup import SenderDedupIndex
@@ -2283,6 +2300,316 @@ def cli_phase(dev, chunks, params, card: str) -> dict:
     return {"cp": cp, "service": service}
 
 
+# ---- phase 11: the multi-device data path (slice 13) ----
+
+SPMD_MESHES = ((1, 1), (1, 2), (2, 2), (2, 4))  # (data, seq)
+SPMD_DRYRUN_DEVICES = 4
+# the kernels of the SPMD path: the step's three (K-A' with and without a
+# halo) and the meshed runner's two (dryrun_multichip)
+SPMD_PATH = ("gear_compact", "segment_fp", "gear_mask", "gear_mask_halo", "segment_fp_fixed", "blockpack_encode")
+
+
+def halo_with_candidate(first: int, mask_bits: int, rng) -> np.ndarray:
+    """32 halo bytes that make the first byte of a shard (whose first byte is
+    ``first``) a candidate: h_0 = G[first] + sum_k G[halo[32 - k]] << k."""
+    from skyplane_tpu_torch.ops.gear import GEAR_TABLE
+
+    g = GEAR_TABLE.astype(np.uint64)
+    while True:
+        halos = rng.integers(0, 256, (1 << 16, 32), dtype=np.uint8)
+        h = np.full(len(halos), g[first], np.uint64)
+        for k in range(1, 32):
+            h += g[halos[:, 32 - k]] << np.uint64(k)
+        hit = np.flatnonzero(((h & np.uint64(0xFFFFFFFF)) >> np.uint64(32 - mask_bits)) == 0)
+        if len(hit):
+            return halos[hit[0]]
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def trace_busy(fn, reps: int):
+    """``reps`` calls of ``fn`` under torch.profiler: (wall ms, device busy
+    ms) per call, or a string saying why it was not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync_all()
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as err:  # noqa: BLE001 — the profiler, not the port
+        return f"not measured (profiler did not start: {err!r})"
+    try:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync_all()
+        wall = time.perf_counter() - t0
+    finally:
+        prof.stop()
+    try:
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as err:  # noqa: BLE001 — the profiler, not the port
+        return f"not measured (profiler events unreadable: {err!r})"
+    if not events:
+        return "not measured (no device events traced)"
+    busy_us, _ = device_busy(events)
+    return wall * 1e3 / reps, busy_us / 1e3 / reps
+
+
+def spmd_drive(batch, placements) -> dict:
+    """Phase 11 (a)'s drive: ``make_spmd_datapath`` over each (shape,
+    devices) once on ``batch``. Returns shape -> (mesh, step, outputs,
+    kernel launches of that one step)."""
+    from skyplane_tpu_torch.ops import kernels
+    from skyplane_tpu_torch.parallel.datapath_spmd import Mesh, make_spmd_datapath
+
+    bucket = batch.shape[1]
+    res = {}
+    for shape, devices in placements:
+        mesh = Mesh(devices, shape)
+        step = make_spmd_datapath(mesh, bucket, batch.shape[0], STEP_BLOCK, STEP_FP_SEG, STEP_MASK_BITS)
+        before = kernels.launch_counts()
+        out = step(batch)
+        sync_all()
+        after = kernels.launch_counts()
+        res[shape] = (mesh, step, out, {k: after[k] - before[k] for k in after})
+    return res
+
+
+def spmd_check(batch, rows, ref, drive: dict, card: str, label: str) -> dict:
+    """Phase 11 (a)'s checks of each mesh's step: three launches a position
+    (K-A' with a halo on every position past a row's first), candidates, tags
+    and fingerprints equal to ``datapath_step``'s, n_lit summing to its
+    counts, every row's per-shard literals decoding byte-identical on the
+    host; then its time by CUDA events. Returns shape -> step ms."""
+    from skyplane_tpu_torch.ops.host_fallback import blockpack_decode_host
+
+    bucket = batch.shape[1]
+    ms = {}
+    for (data, seq), (mesh, step, out, launches) in drive.items():
+        n = data * seq
+        want = {"gear_mask": n, "gear_mask_halo": data * (seq - 1), "blockpack_encode": n, "segment_fp_fixed": n}
+        got = {k: launches.get(k, 0) for k in want}
+        if got != want or sum(launches.values()) - launches["gear_mask_halo"] != 3 * n:
+            raise AssertionError(f"phase 11 {label}: mesh {data}x{seq}: launches {launches}, want {want}")
+        for k in ("candidates", "tags", "fp_lanes"):
+            if not torch.equal(out[k], ref[k]):
+                raise AssertionError(f"phase 11 {label}: mesh {data}x{seq}: {k} differ from datapath_step")
+        n_lit = out["n_lit"].cpu().numpy()
+        if not np.array_equal(n_lit.sum(1), ref["n_lit"].cpu().numpy()):
+            raise AssertionError(f"phase 11 {label}: mesh {data}x{seq}: n_lit does not sum to datapath_step's")
+        if n == 1 and not torch.equal(out["literals"], ref["literals"]):
+            raise AssertionError(f"phase 11 {label}: mesh 1x1: literals differ from datapath_step")
+        n_local = bucket // seq
+        tags = out["tags"].cpu().numpy().reshape(len(rows), seq, n_local // STEP_BLOCK)
+        lits = out["literals"].cpu().numpy().reshape(len(rows), seq, n_local)
+        for i in range(len(rows)):
+            for s in range(seq):
+                back = blockpack_decode_host(tags[i, s], lits[i, s, : n_lit[i, s]], STEP_BLOCK)
+                if not np.array_equal(back, rows[i, s * n_local : (s + 1) * n_local]):
+                    raise AssertionError(f"phase 11 {label}: mesh {data}x{seq}: row {i} shard {s} does not decode")
+        ms[(data, seq)] = time_ms(lambda: step(batch), 10)
+        traced = trace_busy(lambda: step(batch), 10)
+        if not isinstance(traced, str):
+            traced = (f"traced wall {traced[0]:.4f} ms, device busy {traced[1]:.4f} ms per step "
+                      f"(idle {1 - traced[1] / traced[0]:.2%})")
+        log(f"phase 11 {label}: mesh {data}x{seq} on {[str(d) for d in mesh.devices]}: launches per step {got} "
+            f"(= {n} positions x 3); outputs equal datapath_step, all {len(rows)} rows x {seq} shards decode "
+            f"byte-identical; step {ms[(data, seq)]:.4f} ms by events, {traced}; on {card}")
+        del out
+    torch.cuda.empty_cache()
+    return ms
+
+
+def spmd_halo(dev, batch, card: str) -> dict:
+    """Phase 11 (a): K-A' with a halo against its plain version on the 2x4
+    mesh's shards and on adversarial halos, its time beside its bound, and
+    the slab and halo copies a position makes."""
+    from skyplane_tpu_torch.ops import kernels
+    from skyplane_tpu_torch.state import device_tables
+
+    tables = device_tables(dev)
+    data, seq = SPMD_MESHES[-1]
+    b_local, n_local = batch.shape[0] // data, batch.shape[1] // seq
+    err = 0
+    for r in range(data):
+        for s in range(1, seq):
+            rows = slice(r * b_local, (r + 1) * b_local)
+            slab = batch[rows, s * n_local : (s + 1) * n_local].contiguous()
+            halo = batch[rows, s * n_local - 32 : s * n_local].contiguous()
+            err = max(err, max_abs_err(kernels.gear_mask(slab, tables, STEP_MASK_BITS, halo=halo),
+                                       kernels.gear_mask_plain(slab, tables, STEP_MASK_BITS, halo)))
+    rng = np.random.default_rng(11)
+    adv = rng.integers(0, 256, (b_local, n_local), dtype=np.uint8)
+    adv_halo = rng.integers(0, 256, (b_local, 32), dtype=np.uint8)
+    adv[0, :4096], adv_halo[0] = 0, 0  # a shard boundary inside a run of zeros
+    adv[1, :4096], adv_halo[1] = 0x5A, 0x5A  # ... and inside a run of 0x5A
+    adv_halo[2] = halo_with_candidate(int(adv[2, 0]), STEP_MASK_BITS, rng)  # a candidate on the first byte
+    adv_t, adv_h = torch.from_numpy(adv).to(dev), torch.from_numpy(adv_halo).to(dev)
+    plain = kernels.gear_mask_plain(adv_t, tables, STEP_MASK_BITS, adv_h)
+    if not bool(plain[2, 0]):
+        raise AssertionError("phase 11: the adversarial halo put no candidate on the shard's first byte")
+    adv_err = max_abs_err(kernels.gear_mask(adv_t, tables, STEP_MASK_BITS, halo=adv_h), plain)
+    # the trap at mask bits 1 (half the positions are candidates): shard 0 of
+    # a row has no halo, and 32 zero bytes in its place change the front's hash
+    no_halo = kernels.gear_mask(adv_t, tables, 1)
+    zero_halo = kernels.gear_mask(adv_t, tables, 1, halo=torch.zeros_like(adv_h))
+    trap = int((no_halo != zero_halo).sum())
+    log(f"phase 11 (a): K-A' with a halo, max |kernel - plain| {err} on the {data * (seq - 1)} halo shards of "
+        f"mesh {data}x{seq} ([{b_local}, {n_local}] each), {adv_err} on adversarial halos (a boundary inside a run "
+        f"of zeros and of 0x5A, a candidate on the first byte); at mask bits 1, no halo and a halo of 32 zero "
+        f"bytes differ in {trap} positions (why shard 0 passes none)")
+    if err or adv_err or not trap:
+        raise AssertionError(f"phase 11: K-A' with a halo disagrees with its plain version: {err}, {adv_err}")
+    slab = batch[0:b_local, n_local : 2 * n_local].contiguous()
+    halo = batch[0:b_local, n_local - 32 : n_local].contiguous()
+    ms = time_ms(lambda: kernels.gear_mask(slab, tables, STEP_MASK_BITS, halo=halo), 50)
+    plain_ms = time_ms(lambda: kernels.gear_mask_plain(slab, tables, STEP_MASK_BITS, halo), 3, 1)
+    no_halo_ms = time_ms(lambda: kernels.gear_mask(slab, tables, STEP_MASK_BITS), 50)
+    traced = traced_ms(lambda: kernels.gear_mask(slab, tables, STEP_MASK_BITS, halo=halo), "gear_mask", 50)
+    no_halo_traced = traced_ms(lambda: kernels.gear_mask(slab, tables, STEP_MASK_BITS), "gear_mask", 50)
+    slab_ms = time_ms(lambda: batch[0:b_local, n_local : 2 * n_local].contiguous(), 20)
+    halo_ms = time_ms(lambda: slab[:, -32:].contiguous(), 50)
+    n = slab.numel()
+    # read the slab, its halo and the table; write one byte per byte; per byte
+    # the hash step (one shift-add) and the top-bits test
+    bound, by = bound_ms(n + 32 * b_local + 1024 + n, 2 * n)
+    log(f"phase 11 (a) on {card}: K-A' with a halo on [{b_local}, {n_local}]: {ms:.4f} ms/launch (without the halo "
+        f"{no_halo_ms:.4f} ms; plain {plain_ms:.3f} ms) by events, bound {bound:.4f} ms ({by}), {bound / ms:.1%} of "
+        f"bound; traced: {traced}; without the halo {no_halo_traced}; "
+        f"a position's slab copy (a strided [{b_local}, {n_local}] column block made contiguous) {slab_ms:.4f} ms, "
+        f"its halo copy ([{b_local}, 32]) {halo_ms:.4f} ms")
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "max_abs_err": max(err, adv_err),
+            "traced": traced}
+
+
+def spmd_dryrun(dev, label: str, card: str) -> dict:
+    """Phase 11 (b): ``dryrun_multichip(4)`` with SKYPLANE_TPU_SPMD_CHECK=1
+    (every sharded window held against the host recompute in the runner)."""
+    from skyplane_tpu_torch.entry import dryrun_multichip
+
+    saved = os.environ.get("SKYPLANE_TPU_SPMD_CHECK")
+    os.environ["SKYPLANE_TPU_SPMD_CHECK"] = "1"  # read by each runner's constructor
+    try:
+        t0 = time.perf_counter()
+        res = dryrun_multichip(SPMD_DRYRUN_DEVICES, device=dev, prod_chunk=CHUNK_MB << 20)
+        wall = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("SKYPLANE_TPU_SPMD_CHECK", None)
+        else:
+            os.environ["SKYPLANE_TPU_SPMD_CHECK"] = saved
+    per_pos = [{k: c.get(k, 0) for k in SLICE1} for c in res["prod_launches"]]
+    if res["prod_counters"]["spmd_check_batches"] < 1 or any(0 in c.values() for c in per_pos):
+        raise AssertionError(f"phase 11 {label}: a position launched no K-AB or K-C, or no window was checked: {res}")
+    log(f"phase 11 {label} on {card}: dryrun_multichip({SPMD_DRYRUN_DEVICES}) mesh {res['mesh']} on {res['devices']}: "
+        f"{wall:.2f} s; production window {res['prod_window_s']:.3f} s; K-AB and K-C launches per position: "
+        f"stage 1 {[{k: c.get(k, 0) for k in SLICE1} for c in res['stage1_launches']]}, production {per_pos}; "
+        f"windows checked against the host {res['prod_counters']['spmd_check_batches']}; "
+        f"REF segments on the near-duplicate {res['ref_segments']}")
+    return res
+
+
+def spmd_daemon(dev, params, card: str) -> None:
+    """Phase 11 (c): a port daemon in process with SKYPLANE_TPU_SPMD=on builds
+    its runner: unsharded on one card, a mesh over every card on 2^k >= 2."""
+    n = torch.cuda.device_count()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_spmd"
+    shutil.rmtree(root, ignore_errors=True)
+    saved = os.environ.get("SKYPLANE_TPU_SPMD")
+    os.environ["SKYPLANE_TPU_SPMD"] = "on"
+    try:
+        recv = {"op_type": "receive", "handle": "recv", "dedup": True,
+                "children": [{"op_type": "write_local", "handle": "write", "children": []}]}
+        node = start_daemon(dev, params, root, "gw_spmd", recv, {})
+    finally:
+        if saved is None:
+            os.environ.pop("SKYPLANE_TPU_SPMD", None)
+        else:
+            os.environ["SKYPLANE_TPU_SPMD"] = saved
+    try:
+        runner = node.daemon.batch_runner
+        mesh = runner.mesh
+        want_mesh = n > 1 and n & (n - 1) == 0
+        if (mesh is not None) != want_mesh or (mesh is not None and mesh.devices != [torch.device("cuda", i) for i in range(n)]):
+            raise AssertionError(f"phase 11 (c): {n} card(s), runner mesh {mesh}")
+        log(f"phase 11 (c) on {card}: SKYPLANE_TPU_SPMD=on daemon built its runner on {runner.device}, "
+            f"mesh {dict(mesh.shape) if mesh is not None else None} ({n} card(s)), spmd_devices {runner.counters()['spmd_devices']}")
+    finally:
+        node.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def spmd_phase(dev, chunks, params, card: str) -> dict:
+    """Phase 11: the multi-device data path. Returns the launches of its
+    drive (every mesh's first step and the dry run), K-A' with a halo's
+    numbers, and the step times."""
+    from skyplane_tpu_torch.entry import mesh_devices
+    from skyplane_tpu_torch.ops import kernels
+    from skyplane_tpu_torch.ops.pipeline import datapath_step
+    from skyplane_tpu_torch.tools.spmd_scaling import point_label, spmd_scaling
+
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    rows = np.stack([np.frombuffer(c, np.uint8) for c in chunks[:MAX_BATCH]])
+    batch = torch.from_numpy(rows).to(dev)
+    ref = datapath_step(batch, block_bytes=STEP_BLOCK, fp_seg_bytes=STEP_FP_SEG, mask_bits=STEP_MASK_BITS)
+    single_ms = time_ms(lambda: datapath_step(batch, block_bytes=STEP_BLOCK, fp_seg_bytes=STEP_FP_SEG,
+                                              mask_bits=STEP_MASK_BITS), 10)
+    placements = [(shape, mesh_devices(shape[0] * shape[1], dev)) for shape in SPMD_MESHES]
+
+    sync_all()
+    kernels.reset_launch_counts()
+    drive = spmd_drive(batch, placements)
+    spmd_dryrun(dev, "(b)", card)
+    sync_all()
+    launches = kernels.launch_counts()
+    log(f"phase 11: kernel launches of the drive (each mesh's first step, then the dry run): {launches}")
+    if any(launches[k] == 0 for k in SPMD_PATH):
+        raise AssertionError(f"phase 11: a kernel of the SPMD path never launched: {launches}")
+
+    step_ms = spmd_check(batch, rows, ref, drive, card, "(a)")
+    del drive
+    log(f"phase 11 (a) on {card}: datapath_step {single_ms:.4f} ms beside the step over meshes "
+        + ", ".join(f"{d}x{s} {ms:.4f} ms" for (d, s), ms in step_ms.items())
+        + f" ({point_label(mesh_devices(8, dev))} for the 2x4 mesh)")
+    halo = spmd_halo(dev, batch, card)
+    del batch, ref
+    torch.cuda.empty_cache()
+    spmd_daemon(dev, params, card)
+
+    for row in spmd_scaling(dev, (1, 2, 4, 8), chunk_mb=1, reps=3):
+        log(f"phase 11 scaling on {card}: {row['n']} position(s), mesh {row['mesh']} on {row['devices']}: "
+            f"{row['gbps']:.3f} Gbps, identical to the host path ({row['label']})")
+
+    if n_cards >= 2:  # (d): distinct cards
+        before = torch.cuda.current_device()
+        last = torch.device("cuda", n_cards - 1)
+        from skyplane_tpu_torch.state import device_tables
+
+        kernels.gear_mask(torch.zeros((1, 8192), dtype=torch.uint8, device=last), device_tables(last), 12)
+        torch.cuda.synchronize(last)
+        if torch.cuda.current_device() != before:
+            raise AssertionError(f"phase 11 (d): a launch on {last} moved the current device from {before}")
+        batch = torch.from_numpy(rows).to(dev)
+        ref = datapath_step(batch, block_bytes=STEP_BLOCK, fp_seg_bytes=STEP_FP_SEG, mask_bits=STEP_MASK_BITS)
+        fits = [(s, [torch.device("cuda", i) for i in range(s[0] * s[1])]) for s in SPMD_MESHES if s[0] * s[1] <= n_cards]
+        spmd_check(batch, rows, ref, spmd_drive(batch, fits), card, "(d)")
+        del batch, ref
+        spmd_dryrun(dev, "(d)", card)
+        log(f"phase 11 (d): current device {before} unchanged after a launch on {last}")
+    else:
+        log(f"phase 11 (d) not run: the machine has {n_cards} card(s), so no mesh spans distinct cards and no launch "
+            "can move the current device to another card (the repeated-card meshes of (a) and (b) ran instead)")
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "halo": halo, "step_ms": step_ms, "single_ms": single_ms}
+
+
 def device_busy(events):
     """Device events of a profile -> (busy us: the union of their intervals,
     the 8 names with the most device time, as (name, us))."""
@@ -2656,6 +2983,8 @@ def main() -> int:
     blast_heal_phase(dev, chunks, params, card)
     service_phase(dev, chunks, params, card, client["split"]["provision"])
     cli = cli_phase(dev, chunks, params, card)
+    torch.cuda.empty_cache()
+    spmd = spmd_phase(dev, chunks, params, card)
     launches.update({k: step_launches[k] for k in SLICE2})
     errs.update(step_errs)
     timings.update(step_timings)
@@ -2669,7 +2998,14 @@ def main() -> int:
         "gear_mask": ("skyplane_tpu_torch/csrc/gear_mask.cu", "skyplane_tpu/ops/pallas_kernels.py:49"),
         "segment_fp_fixed": ("skyplane_tpu_torch/csrc/segment_fp_fixed.cu", "skyplane_tpu/ops/pallas_kernels.py:140"),
         "blockpack_encode": ("skyplane_tpu_torch/csrc/blockpack_encode.cu", "skyplane_tpu/ops/blockpack.py:44"),
+        # K-A' in halo mode: the per-shard gear hash of the SPMD step (K8)
+        "gear_mask_halo": ("skyplane_tpu_torch/csrc/gear_mask.cu", "skyplane_tpu/parallel/datapath_spmd.py:121"),
     }
+    halo = spmd["halo"]
+    timings["gear_mask_halo"] = (halo["ms"], halo["plain_ms"])
+    bounds["gear_mask_halo"] = (halo["bound_ms"], halo["bound_by"])
+    errs["gear_mask_halo"] = halo["max_abs_err"]
+    launches["gear_mask_halo"] = spmd["launches"]["gear_mask_halo"]
     rows = []
     for name, (source, rep) in replaces.items():
         ms, plain_ms = timings[name]
@@ -2678,6 +3014,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": rep, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "library_ms": None, "launches_cli": cli["service"]["launches"].get(name, 0),
+            "launches_spmd": spmd["launches"][name],
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -56,6 +56,7 @@
 
 #include "lookback.cuh"
 #include "resident.cuh"
+#include "current_device.cuh"
 
 #ifndef BP_TILE
 #define BP_TILE 24576
@@ -471,7 +472,7 @@ extern "C" int skyt_blockpack_encode(const void* data, void* tags, void* literal
   const long long n_tiles = (n + tile - 1) / tile;
   const long long total = n_tiles * rows;
   if (scratch_words < total + 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = check_current_device(device);
   if (err != cudaSuccess) return (int)err;
   static bool smem_set[64] = {};
   if (device < 0 || device >= 64 || !smem_set[device]) {

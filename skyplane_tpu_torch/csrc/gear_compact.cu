@@ -56,6 +56,7 @@
 
 #include "lookback.cuh"
 #include "resident.cuh"
+#include "current_device.cuh"
 
 namespace {
 
@@ -267,7 +268,7 @@ extern "C" int skyt_gear_compact(const void* data, const void* lens, const void*
   const long long n_chunks = (bucket + kChunkBytes - 1) / kChunkBytes;
   const long long total = n_chunks * rows;
   if (bucket <= 0 || bucket % kTileBytes || scratch_words < total + 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = check_current_device(device);
   if (err != cudaSuccess) return (int)err;
   static bool smem_set[64] = {};
   if (device < 0 || device >= 64 || !smem_set[device]) {

@@ -20,8 +20,19 @@
 // Rows are read with stride n_pad (a multiple of 8192; the wrapper pads a
 // row with zeros on the right, which changes no hash below n because the
 // hash is causal) and written with stride n.
+//
+// Halo mode (the SPMD step's seq shards, skyplane_tpu_torch/parallel/
+// datapath_spmd.py; the counterpart of _gear_hash_halo in
+// skyplane_tpu/parallel/datapath_spmd.py, whose 31 gear values arrive by
+// ppermute): `halo` holds [rows, 32] bytes, the left shard's last 32 bytes of
+// each row, and word 0 of a row reads its 32 front bytes there instead of
+// starting from h = 0. Every other word is unchanged, so the kernel's bytes
+// grow by 32 a row. A null `halo` is the kernel without halo exactly (a
+// chunk's first shard: its hash has a zero prefix, which 32 zero bytes would
+// not give, since the table maps byte 0 to a nonzero value).
 #include <cstdint>
 #include <cuda_runtime.h>
+#include "current_device.cuh"
 
 namespace {
 
@@ -33,9 +44,9 @@ __device__ __forceinline__ uint32_t spread_nibble(uint32_t nibble) {
   return (nibble | (nibble << 7) | (nibble << 14) | (nibble << 21)) & 0x01010101u;
 }
 
-__global__ void gear_mask_kernel(const uint8_t* __restrict__ data, const uint32_t* __restrict__ gear_table,
-                                 uint8_t* __restrict__ out, long long n_pad, long long n, int mask_bits,
-                                 int vec_out) {
+__global__ void gear_mask_kernel(const uint8_t* __restrict__ data, const uint8_t* __restrict__ halo,
+                                 const uint32_t* __restrict__ gear_table, uint8_t* __restrict__ out,
+                                 long long n_pad, long long n, int mask_bits, int vec_out) {
   __shared__ uint32_t table[256];
   for (int i = threadIdx.x; i < 256; i += kThreads) table[i] = gear_table[i];
   __syncthreads();
@@ -46,15 +57,22 @@ __global__ void gear_mask_kernel(const uint8_t* __restrict__ data, const uint32_
   if (pos0 >= n) return;  // the padding past n: nothing to write
   const uint4* cur = reinterpret_cast<const uint4*>(data + (long long)row * n_pad + pos0);
 
+  // the 32 bytes before this word: the row's own, or the left shard's for word 0
+  const uint4* front = nullptr;
+  if (word > 0) {
+    front = cur - 2;
+  } else if (halo != nullptr) {
+    front = reinterpret_cast<const uint4*>(halo + (long long)row * 32);
+  }
   uint32_t h = 0;
-  if (word > 0) {  // left halo: the 32 bytes before this word
-    const uint4 p0 = cur[-2];
-    const uint4 p1 = cur[-1];
-    const uint32_t halo[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+  if (front != nullptr) {
+    const uint4 p0 = front[0];
+    const uint4 p1 = front[1];
+    const uint32_t prev[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) h = (h << 1) + table[(halo[w] >> (8 * k)) & 0xFFu];
+      for (int k = 0; k < 4; ++k) h = (h << 1) + table[(prev[w] >> (8 * k)) & 0xFFu];
     }
   }
   const uint4 c0 = cur[0];
@@ -91,15 +109,18 @@ __global__ void gear_mask_kernel(const uint8_t* __restrict__ data, const uint32_
 
 }  // namespace
 
-// data [rows, n_pad] u8 (n_pad % 8192 == 0, 16-byte aligned), gear_table
-// [256] u32, out [rows, n] u8 (0/1), n <= n_pad. vec_out: out is 16-byte
-// aligned and n % 16 == 0. Returns a cudaError_t.
-extern "C" int skyt_gear_mask(const void* data, const void* gear_table, void* out, long long n_pad, long long n,
-                              int rows, int mask_bits, int vec_out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// data [rows, n_pad] u8 (n_pad % 8192 == 0, 16-byte aligned), halo null or
+// [rows, 32] u8 (16-byte aligned), gear_table [256] u32, out [rows, n] u8
+// (0/1), n <= n_pad. vec_out: out is 16-byte aligned and n % 16 == 0.
+// Launches on the current device, which must be `device`. Returns a
+// cudaError_t.
+extern "C" int skyt_gear_mask(const void* data, const void* halo, const void* gear_table, void* out, long long n_pad,
+                              long long n, int rows, int mask_bits, int vec_out, int device, void* stream) {
+  cudaError_t err = check_current_device(device);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)(n_pad / kTileBytes), (unsigned)rows);
-  gear_mask_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>((const uint8_t*)data, (const uint32_t*)gear_table,
-                                                                (uint8_t*)out, n_pad, n, mask_bits, vec_out);
+  gear_mask_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>((const uint8_t*)data, (const uint8_t*)halo,
+                                                                (const uint32_t*)gear_table, (uint8_t*)out, n_pad,
+                                                                n, mask_bits, vec_out);
   return (int)cudaGetLastError();
 }

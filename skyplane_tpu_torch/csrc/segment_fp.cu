@@ -54,6 +54,7 @@
 
 #include "lane_poly.cuh"
 #include "u32.cuh"
+#include "current_device.cuh"
 
 namespace {
 
@@ -347,7 +348,7 @@ extern "C" int skyt_segment_fp(const void* data, const void* ends, const void* l
                                const void* ipow, void* acc, void* out, long long bucket, int rows, int n_slots,
                                int max_seg, int device, void* stream) {
   if (max_seg != kMaxSeg) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = check_current_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const long long n_out = (long long)rows * n_slots * kLanes;

@@ -44,6 +44,7 @@
 
 #include "lane_poly.cuh"
 #include "u32.cuh"
+#include "current_device.cuh"
 
 namespace {
 
@@ -219,7 +220,7 @@ extern "C" int skyt_segment_fp_fixed(const void* data, const void* powers, const
                                      long long n, long long seg, int rows, int splits, long long cols_per_split,
                                      int max_seg, int words, int device, void* stream) {
   if (max_seg != kMaxSeg) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = check_current_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const int n_seg = (int)(n / seg);

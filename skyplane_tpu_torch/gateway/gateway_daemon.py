@@ -20,9 +20,10 @@ default; it raises without a card unless ``device="cpu"`` is asked for) and
 hands it to the sender operators, the receiver and the batch runner. With
 ``SKYPLANE_TPU_PUMP_PROCS > 0`` the receiver and every sender run in pump
 worker processes (``pump.py``) on the CPU, and the sender workers' codec
-batches come back to this daemon's runner on the card. One thing of the JAX
-package's daemon waits for a later slice and raises instead of running another
-path: the SPMD mesh runner (``SKYPLANE_TPU_SPMD=on``, the multi-GPU data path).
+batches come back to this daemon's runner on the card. On a machine with
+2^k >= 2 cards the runner shards its batches over a mesh of all of them
+(``parallel/datapath_spmd.py``); ``SKYPLANE_TPU_SPMD=on`` builds a runner
+even on a CPU daemon, ``off`` never shards.
 """
 
 from __future__ import annotations
@@ -53,17 +54,8 @@ from skyplane_tpu_torch.gateway.operators.gateway_receiver import GatewayReceive
 from skyplane_tpu_torch.ops.backend import resolve_device
 from skyplane_tpu_torch.ops.cdc import CDCParams
 from skyplane_tpu_torch.ops.dedup import SegmentStore
+from skyplane_tpu_torch.parallel.datapath_spmd import spmd_mode
 from skyplane_tpu_torch.utils.logger import logger
-
-def spmd_mode() -> str:
-    """``SKYPLANE_TPU_SPMD`` as the JAX package parses it: "off", "auto" or "on"."""
-    v = os.environ.get("SKYPLANE_TPU_SPMD", "auto").strip().lower()
-    if v in ("0", "off", "false", "no"):
-        return "off"
-    if v in ("1", "on", "true", "yes", "force"):
-        return "on"
-    return "auto"
-
 
 def _iter_program_ops(program: dict):
     """Yield every op dict in a gateway program (depth-first)."""
@@ -204,22 +196,20 @@ class GatewayDaemon:
         except ValueError:
             logger.fs.warning("ignoring malformed SKYPLANE_TPU_BATCH_CHUNKS; using 8")
             max_batch = 8
-        # SKYPLANE_TPU_SPMD=on asks for the mesh-sharded runner over several
-        # cards, which waits for the multi-GPU slice: refuse it rather than
-        # run the single-card path under that name. "off" and "auto" (one
-        # card: no mesh) run the single-card runner.
+        # SKYPLANE_TPU_SPMD=on builds the runner even on a CPU daemon; =off
+        # never builds a mesh (maybe_default_mesh returns None); auto shards
+        # when the machine has a viable mesh of cards (2^k >= 2)
         mode = spmd_mode()
-        if mode == "on":
-            raise NotImplementedError(
-                "SKYPLANE_TPU_SPMD=on: the mesh-sharded batch runner is the multi-GPU data path, "
-                "not ported yet; use auto or off"
-            )
-        if batch_runner is None and max_batch > 1 and mode != "off" and self.device.type == "cuda":
+        if batch_runner is None and max_batch > 1 and mode != "off" and (self.device.type == "cuda" or mode == "on"):
             from skyplane_tpu_torch.ops.batch_runner import DeviceBatchRunner
+            from skyplane_tpu_torch.parallel import datapath_spmd
 
+            mesh = datapath_spmd.maybe_default_mesh(self.device)
             self.batch_runner = DeviceBatchRunner(
-                cdc_params=self.cdc_params, max_batch=max_batch, device=self.device, gateway_id=gateway_id
+                cdc_params=self.cdc_params, max_batch=max_batch, device=self.device, gateway_id=gateway_id, mesh=mesh
             )
+            if mesh is not None:
+                logger.fs.info(f"[daemon {gateway_id}] batch runner sharded over mesh {dict(mesh.shape)}")
 
         self.receiver = GatewayReceiver(
             region=region,

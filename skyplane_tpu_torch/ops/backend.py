@@ -6,7 +6,8 @@ raises, so a measurement can never quietly run on the CPU.
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Optional, Union
 
 import torch
 
@@ -26,3 +27,17 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.dev
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; the port runs on 'cuda' or 'cpu'")
     return dev
+
+
+def on_stream(stream: Optional["torch.cuda.Stream"]):
+    """``torch.cuda.stream(stream)``, or nothing to enter for None (the CPU)."""
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+
+def record_event(stream: Optional["torch.cuda.Stream"]) -> Optional["torch.cuda.Event"]:
+    """An event recorded on ``stream`` now; None for None (the CPU)."""
+    if stream is None:
+        return None
+    event = torch.cuda.Event()
+    event.record(stream)
+    return event

@@ -18,6 +18,12 @@ is padded to max_batch with zero rows (n=0). Padded host buffers come from a
 shared ``BufferPool`` and are recycled right after the dispatch, since each
 row's bytes were uploaded synchronously at submit (``FusedCDCFP.stage``).
 
+With a ``mesh`` (``parallel/datapath_spmd.py``) the runner shards each
+window's rows over the mesh's positions (``FusedCDCFP`` mesh mode): every
+window pads to ``max_batch``, rounded up to a multiple of the positions, and
+rows are not staged at submit. ``SKYPLANE_TPU_SPMD_CHECK=1`` holds every
+sharded window against the host recompute before its results leave.
+
 Two-phase completion: ``BatchHandle.ends`` unblocks when call A + host
 boundary selection finish, while call B and its readback are still in
 flight; ``BatchHandle.fps`` then finalizes the worker's OWN digests from the
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -98,6 +105,7 @@ class DeviceBatchRunner:
         pool: Optional[BufferPool] = None,
         device="cuda",
         gateway_id: Optional[str] = None,
+        mesh=None,
     ):
         self.cdc_params = cdc_params
         # names this runner's gateway on its journaled phases, so the first
@@ -124,9 +132,45 @@ class DeviceBatchRunner:
         self._saw_first_window = False
         self._zero_rows: Dict[int, np.ndarray] = {}  # bucket -> shared read-only zero row
         self._dev_zero_rows: Dict[int, torch.Tensor] = {}  # bucket -> zero row on the device
-        self.fused = FusedCDCFP(cdc_params, pool=self.pool, device=device)
+        # multi-device gateway: run the two calls sharded over the mesh
+        # (parallel/datapath_spmd.py) so every card works the data path.
+        # Boundary selection is sequential per chunk, so chunks (the batch
+        # dim) are the parallel axis. Shard over ALL mesh axes when the
+        # device count fits the window; otherwise over the data axis only —
+        # never inflate the window by more than 2x.
+        self.mesh = mesh
+        self.shard_axes = None
+        if mesh is not None:
+            sizes = dict(mesh.shape)
+            n_flat = int(np.prod(list(sizes.values())))
+            data_ax = sizes.get("data", n_flat)
+            if n_flat <= self.max_batch:
+                self.shard_axes = tuple(sizes.keys())
+                divisor = n_flat
+            elif data_ax <= self.max_batch:
+                self.shard_axes = ("data",)
+                divisor = data_ax
+                log.warning(
+                    f"mesh has {n_flat} devices but the batch window is {self.max_batch}: "
+                    f"sharding over the data axis only ({data_ax}); raise tpu_batch_chunks to use all devices"
+                )
+            else:
+                self.mesh = None
+                divisor = 1
+                log.warning(
+                    f"mesh axes {sizes} exceed the {self.max_batch}-chunk batch window; running unsharded "
+                    f"— raise tpu_batch_chunks to at least the data-axis size to shard the data path"
+                )
+            if self.max_batch % divisor:
+                new_batch = ((self.max_batch + divisor - 1) // divisor) * divisor
+                log.warning(f"rounding max_batch {self.max_batch} -> {new_batch} to divide {divisor} mesh shards")
+                self.max_batch = new_batch
+        self.fused = FusedCDCFP(cdc_params, pool=self.pool, device=device, mesh=self.mesh, shard_axes=self.shard_axes)
         self.device = self.fused.device
-
+        # structural bit-identity assertion for the mesh path: every sharded
+        # batch is checked against the host recompute before any result
+        # leaves the runner (tests, dry runs, paranoid deployments)
+        self._spmd_check = os.environ.get("SKYPLANE_TPU_SPMD_CHECK", "0").strip().lower() in ("1", "on", "true", "yes")
     def _note_stage_failure(self, bucket: int, err: BaseException) -> None:
         """Log the first staging failure per bucket; count the rest."""
         with self._lock:
@@ -145,7 +189,8 @@ class DeviceBatchRunner:
             c["stage_failures"] = sum(self._stage_failures.values())
         cap = c["batch_windows"] * self.max_batch
         c["batch_occupancy"] = round(c["batch_rows"] / cap, 4) if cap else 0.0
-        c["spmd_devices"] = 1
+        # numeric only: merge_numeric_counters sums these across pump workers
+        c["spmd_devices"] = int(np.prod(list(self.mesh.shape.values()))) if self.mesh is not None else 1
         c.update(self.pool.counters())
         c.update(self.fused.counters())
         return c
@@ -163,11 +208,14 @@ class DeviceBatchRunner:
             padded[:n] = arr
             padded[n:] = 0
         entry = _Entry(arr=padded, n=len(arr), pooled=pooled)
-        try:
-            entry.dev = self.fused.stage(padded)
-        except Exception as err:  # noqa: BLE001 — the flush uploads this row instead
-            entry.dev = None
-            self._note_stage_failure(len(padded), err)
+        # single-device runners upload each row now; a meshed runner's rows go
+        # to their positions' devices at the flush, so it stages none
+        if self.mesh is None:
+            try:
+                entry.dev = self.fused.stage(padded)
+            except Exception as err:  # noqa: BLE001 — the flush uploads this row instead
+                entry.dev = None
+                self._note_stage_failure(len(padded), err)
         bucket = len(padded)
         with self._lock:
             group = self._open.setdefault(bucket, [])
@@ -251,14 +299,22 @@ class DeviceBatchRunner:
         try:
             rows = [e.arr for e in entries]
             lens = [e.n for e in entries]
-            dev_rows = [e.dev if e.dev is not None else e.arr for e in entries]
-            # batch shapes {1, max_batch}: a lone flush runs B=1, others pad
-            n_pad_rows = self.max_batch - len(rows) if len(rows) > 1 else 0
+            # batch shapes {1, max_batch}: a lone flush runs B=1, others pad.
+            # A meshed runner always pads: a batch of 1 cannot split over
+            # the mesh's positions
+            n_pad_rows = self.max_batch - len(rows) if len(rows) > 1 or self.mesh is not None else 0
+            # a meshed runner stages no rows (see submit)
+            dev_rows = None if self.mesh is not None else [e.dev if e.dev is not None else e.arr for e in entries]
             if n_pad_rows > 0:
                 rows = rows + [self._zero_row(bucket)] * n_pad_rows
                 lens = lens + [0] * n_pad_rows
-                dev_rows = dev_rows + [self._dev_zero_row(bucket)] * n_pad_rows
+                if dev_rows is not None:
+                    dev_rows = dev_rows + [self._dev_zero_row(bucket)] * n_pad_rows
             pending = self.fused.dispatch(rows, lens, dev_rows=dev_rows)
+            if self.mesh is not None and self._spmd_check:
+                # before any ends leave the runner: a diverging shard fails
+                # this window, not a recipe three stages later
+                self._check_mesh_identity(entries, pending)
             # phase 1: ends are final, call B is enqueued
             for e, ends, fb in zip(entries, pending.ends_rows, pending.fallback):
                 if fb is not None:
@@ -283,10 +339,34 @@ class DeviceBatchRunner:
                 self._counters["batch_windows"] += 1
                 self._counters["batch_rows"] += len(entries)
                 self._counters["batch_padded_rows"] += n_pad_rows
+                if self.mesh is not None:
+                    self._counters["spmd_batches"] += 1
                 self._cond.notify_all()  # deferring leaders: this bucket drained
             for e in entries:
                 e.ends_ready.set()
                 e.done.set()
+
+    def _check_mesh_identity(self, entries: List[_Entry], pending) -> None:
+        """SKYPLANE_TPU_SPMD_CHECK: assert the mesh-sharded batch is
+        bit-identical to the host recompute. ``lanes()`` is cached, so the
+        eager readback here makes the later phase-2 call free; verified rows
+        get ``fps`` set directly, skipping lazy finalize."""
+        from skyplane_tpu_torch.ops.cdc import cdc_and_fps_host
+
+        lanes = pending.lanes()
+        for i, e in enumerate(entries):
+            if pending.fallback[i] is not None:
+                continue  # overflow rows already ARE the exact host recompute
+            ends = pending.ends_rows[i]
+            fps = finalize_row(lanes[i], ends)
+            ref_ends, ref_fps = cdc_and_fps_host(e.arr[: e.n], self.cdc_params)
+            if not np.array_equal(np.asarray(ends), np.asarray(ref_ends)) or list(fps) != list(ref_fps):
+                raise AssertionError(
+                    f"SPMD mesh batch diverged from host recompute (bucket {len(e.arr)}, row {i}, n={e.n})"
+                )
+            e.fps = fps
+        with self._lock:
+            self._counters["spmd_check_batches"] += 1
 
     def _release_pooled(self, entries: List[_Entry]) -> None:
         for e in entries:

@@ -14,10 +14,13 @@ the batch step).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 GEAR_WINDOW = 32
+HALO_BYTES = GEAR_WINDOW  # a seq shard's halo: the left shard's last bytes of each row
 _GEAR_SEED = 0x5EED_CDC1
 _U32 = 0xFFFFFFFF
 
@@ -54,6 +57,18 @@ def gear_hash(data_u8: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         h = (h + (shifted << off)) & _U32
         off <<= 1
     return h
+
+
+def gear_hash_halo(rows: torch.Tensor, halo: Optional[torch.Tensor], table: torch.Tensor) -> torch.Tensor:
+    """Plain per-shard gear hash with the left neighbour's halo (the
+    counterpart of ``_gear_hash_halo`` in the JAX package's SPMD step):
+    [B, n_local] uint8 rows of one seq shard and ``halo`` [B, HALO_BYTES]
+    uint8 (the left shard's last bytes of each row; None for shard 0) ->
+    [B, n_local] int64 hashes, equal to the unsharded ``gear_hash`` at these
+    positions."""
+    if halo is None:
+        return gear_hash(rows, table)
+    return gear_hash(torch.cat([halo, rows], dim=1), table)[:, HALO_BYTES:]
 
 
 def boundary_candidate_mask(h: torch.Tensor, mask_bits: int) -> torch.Tensor:

@@ -22,7 +22,10 @@ the per-chunk sender path (sources in ``skyplane_tpu_torch/csrc/``):
 Three more carry the fused batch step ``datapath_step`` (``ops/pipeline.py``):
 
 - ``gear_mask`` (K-A', ``csrc/gear_mask.cu``): the same hash, and the whole
-  [B, N] candidate mask, one byte per position. Bound by bytes.
+  [B, N] candidate mask, one byte per position. Bound by bytes. With a
+  ``halo`` (the 32 bytes in front of each row) it is also the hash of one
+  seq shard of the SPMD step (``parallel/datapath_spmd.py``), the
+  counterpart of ``_gear_hash_halo``.
 - ``segment_fp_fixed`` (K-D, ``csrc/segment_fp_fixed.cu``) replaces the
   Pallas fixed-stride fingerprint (``pallas_kernels.py``
   ``segment_fp_fixed_pallas``) and its XLA fall-through, for every stride
@@ -46,7 +49,10 @@ library with a plain C interface under ``build/skyplane_tpu_torch/`` (named by
 a hash of its sources and flags), at first use or by :func:`build`, which
 starts one ``nvcc`` per source at once. The libraries are loaded with
 ``ctypes``; every pointer and the stream pass as ``c_void_p``, and each C
-function returns ``cudaGetLastError()``.
+function returns ``cudaGetLastError()``. A C entry launches on the current
+device and sets none: ``_launch`` makes the batch's device current for the
+call and puts the caller's back, so a launch on one card never moves a later
+bare ``"cuda"`` allocation of the thread to it.
 """
 
 from __future__ import annotations
@@ -72,7 +78,7 @@ from skyplane_tpu_torch.ops.fingerprint import (
     segment_fingerprint_cumsum,
     segment_fingerprint_device,
 )
-from skyplane_tpu_torch.ops.gear import boundary_candidate_mask, gear_hash
+from skyplane_tpu_torch.ops.gear import HALO_BYTES, boundary_candidate_mask, gear_hash, gear_hash_halo
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -94,18 +100,24 @@ _LL = ctypes.c_longlong
 _KERNELS = {
     "gear_compact": ("gear_compact.cu", [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]),
     "segment_fp": ("segment_fp.cu", [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]),
-    "gear_mask": ("gear_mask.cu", [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]),
+    "gear_mask": ("gear_mask.cu", [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]),
     "segment_fp_fixed": ("segment_fp_fixed.cu", [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _I, _I, _P]),
     "blockpack_encode": ("blockpack_encode.cu", [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P]),
 }
 
+# K-A' launches with a left halo (the SPMD step's seq shards past the first),
+# counted under this name as well as under "gear_mask"
+GEAR_MASK_HALO = "gear_mask_halo"
+GEAR_HALO_BYTES = HALO_BYTES  # K-A' reads this many bytes in front of each 32-byte word
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-_launches = {name: 0 for name in _KERNELS}
+_launches = {name: 0 for name in (*_KERNELS, GEAR_MASK_HALO)}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per kernel since the last reset (plain runs never count)."""
+    """Kernel launches per kernel since the last reset (plain runs never count),
+    and ``gear_mask_halo``: the ``gear_mask`` launches that took a halo."""
     with _lock:
         return dict(_launches)
 
@@ -122,9 +134,10 @@ _tally = threading.local()
 @contextmanager
 def launch_tally(counts: Dict[str, int]):
     """Within the block, this thread's kernel launches are also added to
-    ``counts`` (name -> launches), besides the process-wide counts."""
-    outer = getattr(_tally, "counts", None)
-    _tally.counts = counts
+    ``counts`` (name -> launches), besides the process-wide counts and the
+    tallies of enclosing blocks."""
+    outer = getattr(_tally, "counts", ())
+    _tally.counts = (*outer, counts)
     try:
         yield counts
     finally:
@@ -205,19 +218,26 @@ def _lib(name: str) -> ctypes.CDLL:
         return lib
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Call kernel ``name``'s C entry on the current stream of ``device``;
-    raise on a CUDA error, count the launch on success."""
+def _launch(name: str, device: torch.device, *args, also: Optional[str] = None) -> None:
+    """Call kernel ``name``'s C entry on the current stream of ``device``, with
+    ``device`` current for the call and the caller's current device put back
+    after it (the C entries set no device: they launch on the current one);
+    raise on a CUDA error, count the launch on success (also under ``also``)."""
     fn = getattr(_lib(name), f"skyt_{name}")
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*args, device.index, stream)
+    if torch.cuda.current_device() == device.index:  # the common case: nothing to switch or put back
+        err = fn(*args, device.index, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, device.index, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    names = (name,) if also is None else (name, also)
     with _lock:
-        _launches[name] += 1
-        tally = getattr(_tally, "counts", None)
-        if tally is not None:
-            tally[name] = tally.get(name, 0) + 1
+        for n in names:
+            _launches[n] += 1
+            for tally in getattr(_tally, "counts", ()):
+                tally[n] = tally.get(n, 0) + 1
 
 
 # ---- operand checks ----
@@ -369,14 +389,27 @@ def segment_fp(batch: torch.Tensor, ends_slots: torch.Tensor, tables) -> torch.T
 # ---- K-A': the full-width candidate mask (K-A's byte-mask mode) ----
 
 
-def gear_mask_plain(batch: torch.Tensor, tables, mask_bits: int) -> torch.Tensor:
-    """Plain version of K-A': ``boundary_candidate_mask(gear_hash(row))`` per row."""
-    return boundary_candidate_mask(gear_hash(batch, tables.gear), mask_bits)
+def _check_halo(halo: Optional[torch.Tensor], b: int, device) -> None:
+    if halo is not None:
+        _check_operand(halo, (b, GEAR_HALO_BYTES), torch.uint8, device, "halo")
 
 
-def gear_mask(batch: torch.Tensor, tables, mask_bits: int) -> torch.Tensor:
+def gear_mask_plain(batch: torch.Tensor, tables, mask_bits: int, halo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K-A': ``boundary_candidate_mask(gear_hash(row))`` per
+    row; with a ``halo`` the hash runs over ``cat(halo, row)`` and its first
+    32 outputs are dropped."""
+    return boundary_candidate_mask(gear_hash_halo(batch, halo, tables.gear), mask_bits)
+
+
+def gear_mask(batch: torch.Tensor, tables, mask_bits: int, halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, N] uint8 -> [B, N] bool: True where the top ``mask_bits`` of the
     gear hash at that position are zero (no length limit: every position).
+
+    ``halo`` ([B, 32] uint8, optional): the 32 bytes in front of each row (a
+    left seq shard's last bytes), which the hash of the row's first 31
+    positions reads; without one the hash has a zero prefix, as a chunk's
+    start. 32 zero bytes are not the same as no halo: the gear table maps
+    byte 0 to a nonzero value.
 
     Rows are zero-padded on the right to a multiple of GEAR_TILE when N is
     not one; the hash is causal, so no output below N changes.
@@ -384,19 +417,21 @@ def gear_mask(batch: torch.Tensor, tables, mask_bits: int) -> torch.Tensor:
     b, n = _check_rows(batch)
     if not 1 <= mask_bits <= 31:
         raise ValueError(f"mask_bits {mask_bits} outside [1, 31]")
+    _check_halo(halo, b, batch.device)
     n_pad = -(-n // GEAR_TILE) * GEAR_TILE
     padded = batch
     if n_pad != n:
         padded = torch.zeros((b, n_pad), dtype=torch.uint8, device=batch.device)
         padded[:, :n] = batch
     if batch.device.type == "cpu":
-        return gear_mask_plain(padded, tables, mask_bits)[:, :n].contiguous()
-    if padded.data_ptr() % 16:
-        raise ValueError("batch must be 16-byte aligned")
+        return gear_mask_plain(padded, tables, mask_bits, halo)[:, :n].contiguous()
+    if padded.data_ptr() % 16 or (halo is not None and halo.data_ptr() % 16):
+        raise ValueError("batch and halo must be 16-byte aligned")
     out = torch.empty((b, n), dtype=torch.uint8, device=batch.device)
     _launch(
-        "gear_mask", batch.device, padded.data_ptr(), tables.gear_bits.data_ptr(), out.data_ptr(), n_pad, n, b,
-        mask_bits, int(n % 16 == 0),
+        "gear_mask", batch.device, padded.data_ptr(), halo.data_ptr() if halo is not None else None,
+        tables.gear_bits.data_ptr(), out.data_ptr(), n_pad, n, b, mask_bits, int(n % 16 == 0),
+        also=GEAR_MASK_HALO if halo is not None else None,
     )
     return out.view(torch.bool)
 

@@ -438,3 +438,77 @@ def test_gateway_on_card_matches_cpu(dev, tmp_path, monkeypatch):
         edges = sorted(e["edge"] for e in events if e["kind"] == PH_FIRST_COMPILE and e.get("gateway") == gw.daemon.gateway_id)
         assert edges == ["end", "start"], (gw.daemon.gateway_id, edges)
 
+
+
+# ---- the SPMD step (K-A' with a halo, a mesh of positions) ----
+
+
+def _halo_with_candidate(first: int, mask_bits: int, rng) -> np.ndarray:
+    """32 halo bytes that put a candidate on a shard whose first byte is
+    ``first``: h_0 = G[first] + sum_k G[halo[32 - k]] << k for k in 1..31."""
+    from skyplane_tpu_torch.ops.gear import GEAR_TABLE
+
+    g = GEAR_TABLE.astype(np.uint64)
+    while True:
+        halos = rng.integers(0, 256, (1 << 16, 32), dtype=np.uint8)
+        h = np.full(len(halos), g[first], np.uint64)
+        for k in range(1, 32):
+            h += g[halos[:, 32 - k]] << np.uint64(k)
+        hit = np.flatnonzero(((h & np.uint64(0xFFFFFFFF)) >> np.uint64(32 - mask_bits)) == 0)
+        if len(hit):
+            return halos[hit[0]]
+
+
+@pytest.mark.parametrize("n, mask_bits", [(1 << 17, 12), (8192 + 40, 6)])
+def test_gear_mask_halo_matches_plain(dev, n, mask_bits):
+    """K-A' with a halo == its plain version: random halos, a shard boundary
+    inside a run of equal bytes, and a candidate on the shard's first byte."""
+    rng = np.random.default_rng(n + mask_bits)
+    rows = _step_rows(rng, n, 8)
+    halo = rng.integers(0, 256, (len(rows), 32), dtype=np.uint8)
+    halo[1] = 0  # with rows[1] all zero: a boundary inside a run of zeros
+    halo[2] = 0x5A  # with rows[2] constant 0x5A
+    halo[3] = _halo_with_candidate(int(rows[3, 0]), mask_bits, rng)  # a candidate on the shard's first byte
+    cpu_t, gpu_t = device_tables("cpu"), device_tables(dev)
+    plain = kernels.gear_mask_plain(torch.from_numpy(rows), cpu_t, mask_bits, torch.from_numpy(halo))
+    assert bool(plain[3, 0])
+    kernels.reset_launch_counts()
+    got = kernels.gear_mask(torch.from_numpy(rows).to(dev), gpu_t, mask_bits, halo=torch.from_numpy(halo).to(dev))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gear_mask_halo"] == 1
+    assert torch.equal(got.cpu(), plain)
+
+
+def test_spmd_step_on_one_card_matches_datapath_step(dev):
+    """The step over four positions on one card ([cuda:0] * 4, 2x2) equals
+    ``datapath_step`` on the same rows; three launches a position."""
+    from skyplane_tpu_torch.ops.pipeline import datapath_step
+    from skyplane_tpu_torch.parallel.datapath_spmd import Mesh, make_spmd_datapath
+
+    rows = _step_rows(np.random.default_rng(5), 1 << 18)[:4]
+    mesh = Mesh([dev] * 4, (2, 2))
+    step = make_spmd_datapath(mesh, 1 << 18, 4, block_bytes=512, fp_seg_bytes=1 << 16, mask_bits=16)
+    kernels.reset_launch_counts()
+    out = step(torch.from_numpy(rows).to(dev))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["gear_mask"], counts["gear_mask_halo"], counts["blockpack_encode"], counts["segment_fp_fixed"]) == (4, 2, 4, 4)
+    want = datapath_step(torch.from_numpy(rows).to(dev), block_bytes=512, fp_seg_bytes=1 << 16, mask_bits=16)
+    for k in ("candidates", "tags", "fp_lanes"):
+        assert torch.equal(out[k], want[k]), k
+    assert torch.equal(out["n_lit"].sum(1, dtype=torch.int32), want["n_lit"])
+
+
+def test_launch_on_another_card_keeps_the_current_device(dev):
+    """A launch on the last card leaves the thread's current device where it was."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs 2 or more cards, the machine has {n}")
+    last = torch.device("cuda", n - 1)
+    before = torch.cuda.current_device()
+    batch = torch.from_numpy(_step_rows(np.random.default_rng(1), 1 << 16)).to(last)
+    got = kernels.gear_mask(batch, device_tables(last), 12)
+    torch.cuda.synchronize(last)
+    assert torch.cuda.current_device() == before
+    assert torch.empty(1, device="cuda").device.index == before
+    assert torch.equal(got.cpu(), kernels.gear_mask(batch.cpu(), device_tables("cpu"), 12))

@@ -336,16 +336,21 @@ def test_cuda_device_without_a_card_raises(tmp_path):
 
 @pytest.mark.parametrize("case", ["spmd_on", "read_object_store", "write_object_store"])
 def test_configurations_waiting_for_later_slices_raise(tmp_path, monkeypatch, case):
-    """SPMD waits for the multi-GPU slice and the daemon refuses it. The
-    object-store operators are ported, but a cloud bucket's backend waits for
-    a later slice: the daemon builds the operator, and its interface raises
-    the factory's "not implemented" refusal."""
+    """SPMD is ported: ``SKYPLANE_TPU_SPMD=on`` no longer raises and builds
+    the batch runner even on a CPU daemon, as the JAX daemon does off the
+    accelerator; a CPU daemon shards over no cards, even on a machine that
+    has four. The object-store operators are
+    ported, but a cloud bucket's backend waits for a later slice: the daemon
+    builds the operator, and its interface raises the factory's "not
+    implemented" refusal."""
     from skyplane_tpu_torch.exceptions import MissingDependencyException
 
     if case == "spmd_on":
         monkeypatch.setenv("SKYPLANE_TPU_SPMD", "on")
-        with pytest.raises(NotImplementedError, match="multi-GPU data path, not ported yet"):
-            _receive_daemon(tmp_path, device="cpu")
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+        d = _receive_daemon(tmp_path, device="cpu")
+        assert d.batch_runner is not None and d.batch_runner.mesh is None
+        assert d.receiver.processor.batch_runner is d.batch_runner
         return
     op = {"op_type": case, "bucket_name": "b", "bucket_region": "aws:us-east-1", "children": []}
     d = _receive_daemon(tmp_path, program(op), device="cpu")
