@@ -296,6 +296,19 @@ Phases (any failure exits non-zero before the final ``ok`` line):
    VM's ``REMOTE_ROOT/build`` from the wheel's ``csrc``, each VM booted once
    from phase 12's wheel, and no daemon outlives deprovisioning.
 
+14. The port's static analysis on the card's machine: ``python3 -m
+   skyplane_tpu_torch.cli.cli lint skyplane_tpu_torch --json F`` as a
+   subprocess from the checkout's root, with a fresh
+   ``SKYPLANE_TPU_SKLINT_CACHE`` under ``build/``, run twice (cold, then
+   warm). Prints the files checked, each run's process wall and pass wall
+   beside the card's name and power limit, and the findings and
+   suppressions by rule; fails unless both exit 0 with zero unsuppressed
+   findings over more than 100 files, ``rule_counts`` lists every rule
+   ``lint --list-rules`` prints, the cold run takes under 30 s, the warm run
+   is a full cache hit with the same findings, and phase 12's wheel (not
+   rebuilt) lists every ``skyplane_tpu_torch/analysis/*.py``. The JAX
+   package's analysis is not run here.
+
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 line describing every kernel (``launches`` from phase 3 (b) and phase 5, and
 for ``gear_mask_halo``, K-A' in halo mode, from phase 11; ``launches_cli``
@@ -3232,6 +3245,71 @@ def multicloud_phase(chunks, card: str, device: str, preinstalled: bool = False)
     return transfer
 
 
+# ---- phase 14: the port's static analysis (slice 16) ----
+
+LINT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_lint"  # gitignored, inside the checkout
+LINT_BOUND_S = 30.0  # the cold pass's bound, as the tier-1 gate holds it
+
+
+def lint_phase(card: str) -> dict:
+    """Phase 14: the port's lint over ``skyplane_tpu_torch`` through its CLI,
+    cold then warm, and phase 12's wheel holding the analysis package."""
+    from skyplane_tpu_torch.compute import bootstrap
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    shutil.rmtree(LINT_DIR, ignore_errors=True)
+    LINT_DIR.mkdir(parents=True)
+    env = {**os.environ, "SKYPLANE_TPU_SKLINT_CACHE": str(LINT_DIR / "sklint-cache.json")}
+    cli = [sys.executable, "-m", "skyplane_tpu_torch.cli.cli", "lint"]
+    listed = subprocess.run(cli + ["--list-rules"], cwd=root, env=env, capture_output=True, text=True, timeout=120)
+    if listed.returncode != 0:
+        raise AssertionError(f"phase 14: lint --list-rules exited {listed.returncode}:\n{listed.stderr[-4000:]}")
+    rules = sorted(line.split()[0] for line in listed.stdout.splitlines() if line.strip())
+    runs = {}
+    for label in ("cold", "warm"):
+        out = LINT_DIR / f"report-{label}.json"
+        t0 = time.perf_counter()
+        r = subprocess.run(cli + ["skyplane_tpu_torch", "--json", str(out)], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"phase 14: lint ({label}) exited {r.returncode}:\n{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+        report = json.loads(out.read_text())
+        runs[label] = {"wall_s": wall, "pass_s": report["wall_time_s"], "report": report}
+        log(f"phase 14 on {card}: lint ({label}) {report['files_checked']} files, process wall {wall:.3f} s, pass "
+            f"{report['wall_time_s']:.3f} s, cache {report['cache']}; its summary: {r.stderr.strip().splitlines()[-1]}")
+    cold, warm = runs["cold"]["report"], runs["warm"]["report"]
+    by_rule = {k: v for k, v in cold["rule_counts"].items() if v["total"]}
+    log(f"phase 14: findings by rule (total / unsuppressed): "
+        + ", ".join(f"{k} {v['total']}/{v['unsuppressed']}" for k, v in sorted(by_rule.items()))
+        + f"; {cold['n_findings']} findings, {cold['n_unsuppressed']} unsuppressed, {len(rules)} rules")
+    for label, report in (("cold", cold), ("warm", warm)):
+        if report["n_unsuppressed"] or not report["ok"]:
+            raise AssertionError(f"phase 14: lint ({label}) has {report['n_unsuppressed']} unsuppressed findings")
+        if report["files_checked"] <= 100:
+            raise AssertionError(f"phase 14: lint ({label}) checked {report['files_checked']} files, not more than 100")
+        if sorted(report["rule_counts"]) != rules:
+            raise AssertionError(f"phase 14: rule_counts {sorted(report['rule_counts'])} are not --list-rules {rules}")
+    if runs["cold"]["wall_s"] >= LINT_BOUND_S:
+        raise AssertionError(f"phase 14: the cold lint took {runs['cold']['wall_s']:.3f} s, not under {LINT_BOUND_S} s")
+    if cold["cache"].get("full_hit") or cold["cache"].get("files_reused"):
+        raise AssertionError(f"phase 14: the cold lint hit a cache: {cold['cache']}")
+    if not warm["cache"].get("full_hit") or warm["findings"] != cold["findings"]:
+        raise AssertionError(f"phase 14: the warm lint was not a full hit of the same findings: {warm['cache']}")
+    wheel = dict(bootstrap.wheel_info)
+    names = set(bootstrap.wheel_listing())
+    if not wheel or bootstrap.wheel_info != wheel:
+        raise AssertionError(f"phase 14: phase 12's wheel was not there to list ({wheel} -> {bootstrap.wheel_info})")
+    wanted = {f"skyplane_tpu_torch/analysis/{f.name}" for f in (root / "skyplane_tpu_torch" / "analysis").glob("*.py")}
+    if len(wanted) < 15 or not wanted <= names:
+        raise AssertionError(f"phase 14: the wheel lacks {sorted(wanted - names)} of the analysis package")
+    log(f"phase 14: phase 12's wheel {Path(wheel['path']).name} lists all {len(wanted)} files of skyplane_tpu_torch/analysis/")
+    shutil.rmtree(LINT_DIR, ignore_errors=True)
+    log(f"phase 14 on {card}: {time.perf_counter() - t_phase:.1f} s")
+    return {k: {"wall_s": v["wall_s"], "pass_s": v["pass_s"]} for k, v in runs.items()}
+
+
 def device_busy(events):
     """Device events of a profile -> (busy us: the union of their intervals,
     the 8 names with the most device time, as (name, us))."""
@@ -3610,6 +3688,7 @@ def main() -> int:
     torch.cuda.empty_cache()  # the sandbox VMs' daemons of phase 12 are processes of their own
     cloud = cloud_phase(chunks, card, str(dev))
     multicloud = multicloud_phase(chunks, card, str(dev))
+    lint_phase(card)
     launches.update({k: step_launches[k] for k in SLICE2})
     errs.update(step_errs)
     timings.update(step_timings)

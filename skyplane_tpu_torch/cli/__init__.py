@@ -1,12 +1,1 @@
 """The port's command line (``python -m skyplane_tpu_torch.cli.cli``)."""
-
-# the ROADMAP queue 1 items that port what a refusal names
-_ROADMAP_ITEMS = {7: "analysis/, the static analysis"}
-
-
-def not_ported(what: str, item) -> NotImplementedError:
-    """The refusal of a command part whose module the port lacks: it names
-    ROADMAP queue 1 ``item``, which ports it."""
-    return NotImplementedError(
-        f"{what} is not ported to skyplane_tpu_torch yet (ROADMAP queue 1 item {item}: {_ROADMAP_ITEMS[item]})"
-    )

@@ -9,8 +9,8 @@ The port's copy of the JAX package's command line: the same commands,
 options, help and exit codes, over ``skyplane_tpu_torch``. Run it as
 ``python -m skyplane_tpu_torch.cli.cli`` (or the ``skyplane-tpu-torch``
 script). Gateways that ``cp``, ``sync`` and ``blast`` spawn run on the card
-unless ``SKYPLANE_LOCAL_GATEWAY_PLATFORM=cpu``. What the port lacks still
-refuses, naming its ROADMAP item: ``lint`` (``analysis/``).
+unless ``SKYPLANE_LOCAL_GATEWAY_PLATFORM=cpu``. ``lint`` runs the port's
+own static analysis (``skyplane_tpu_torch.analysis``).
 """
 
 from __future__ import annotations
@@ -249,12 +249,7 @@ def lint(args):
 
     Forwards to `python -m skyplane_tpu_torch.analysis`; try `lint --list-rules`
     or `lint skyplane_tpu_torch --json findings.json`."""
-    from skyplane_tpu_torch.cli import not_ported
-
-    try:
-        from skyplane_tpu_torch.analysis.__main__ import main as lint_main
-    except ModuleNotFoundError as e:
-        raise click.ClickException(str(not_ported("lint (analysis/)", 7))) from e
+    from skyplane_tpu_torch.analysis.__main__ import main as lint_main
 
     sys.exit(lint_main(list(args)))
 

@@ -260,8 +260,12 @@ class FusedCDCFP:
             if event is not None:
                 event.synchronize()
             packed[rows] = packed_host.numpy()
-        ends_rows, fallback, ends_slots, ends_scratch = self._select(packed, host_rows, lens_np, bucket, cap, n_slots)
+        if self.pool is not None:
+            ends_scratch = self.pool.acquire_scratch((b, n_slots), np.int32)
+        else:
+            ends_scratch = None
         try:
+            ends_rows, fallback, ends_slots = self._select(packed, host_rows, lens_np, bucket, cap, n_slots, ends_scratch)
             lanes_host = torch.empty((b, n_slots, kernels.N_LANES), dtype=torch.int32, pin_memory=cuda)
             events, keep = [], []
             for pos, (rows, dev_batch, _, _) in zip(self._positions, groups):
@@ -294,36 +298,33 @@ class FusedCDCFP:
             return self._upload(np.stack(host_rows[rows]), pos.device)
         return self._upload(np.ascontiguousarray(batch[rows]), pos.device)
 
-    def _select(self, packed: np.ndarray, host_rows, lens_np: np.ndarray, bucket: int, cap: int, n_slots: int):
+    def _select(self, packed: np.ndarray, host_rows, lens_np: np.ndarray, bucket: int, cap: int, n_slots: int, ends_scratch):
         """Host boundary selection over call A's packed candidates: per-row
         ends (None for an overflow row, whose exact host result goes in
-        ``fallback``) and the [B, n_slots] ends operand of call B."""
+        ``fallback``) and the [B, n_slots] ends operand of call B, written
+        into the pooled ``ends_scratch`` when there is one (the caller owns
+        and releases it)."""
         b = len(lens_np)
         ends_rows: List[Optional[np.ndarray]] = []
         fallback: List[Optional[Tuple[np.ndarray, List[bytes]]]] = []
-        ends_scratch = self.pool.acquire_scratch((b, n_slots), np.int32) if self.pool is not None else None
-        try:
-            ends_slots = ends_scratch if ends_scratch is not None else np.empty((b, n_slots), np.int32)
-            ends_slots.fill(bucket)
-            for i in range(b):
-                n = int(lens_np[i])
-                n_cand = int(packed[i, cap])
-                if n_cand > cap:  # overflow: the compaction truncated the list
-                    with self._lock:
-                        self.overflow_rows += 1
-                    fallback.append(_host_exact(np.asarray(host_rows[i][:n]), self.params))
-                    ends_rows.append(None)
-                    continue
-                fallback.append(None)
-                ends = select_boundaries(packed[i, :n_cand].astype(np.int64), n, self.params)
-                ends_rows.append(ends)
-                ends_slots[i, : len(ends)] = ends
-                if n < bucket:  # one garbage end covering the zero padding
-                    ends_slots[i, len(ends)] = bucket
-        except BaseException:
-            self._release_ends(ends_scratch)
-            raise
-        return ends_rows, fallback, ends_slots, ends_scratch
+        ends_slots = ends_scratch if ends_scratch is not None else np.empty((b, n_slots), np.int32)
+        ends_slots.fill(bucket)
+        for i in range(b):
+            n = int(lens_np[i])
+            n_cand = int(packed[i, cap])
+            if n_cand > cap:  # overflow: the compaction truncated the list
+                with self._lock:
+                    self.overflow_rows += 1
+                fallback.append(_host_exact(np.asarray(host_rows[i][:n]), self.params))
+                ends_rows.append(None)
+                continue
+            fallback.append(None)
+            ends = select_boundaries(packed[i, :n_cand].astype(np.int64), n, self.params)
+            ends_rows.append(ends)
+            ends_slots[i, : len(ends)] = ends
+            if n < bucket:  # one garbage end covering the zero padding
+                ends_slots[i, len(ends)] = bucket
+        return ends_rows, fallback, ends_slots
 
     def _release_ends(self, ends_scratch) -> None:
         # an overflow-row recompute or a failed launch must not strand the

@@ -25,11 +25,15 @@ def fold31(x: torch.Tensor) -> torch.Tensor:
 
 def addmod31(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod M31 for canonical int64 a, b."""
+    a = a.to(torch.int64)  # the contract's explicit cast: a no-op (no copy) on int64
+    b = b.to(torch.int64)
     return fold31(a + b)
 
 
 def mulmod31(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a * b) mod M31 for int64 a, b < 2^31 (the product fits int64)."""
+    a = a.to(torch.int64)
+    b = b.to(torch.int64)
     return fold31(a * b)
 
 

@@ -7,11 +7,11 @@ normalised. The twins of ``tests/unit/test_cli_fallback.py`` run on both
 packages. ``config``, ``sync --watch --spool``, the native-tool delegation of
 ``cp`` and ``cloud ls`` give the same output and the same files from both
 CLIs, each over its own temporary config, and so do ``init``,
-``deprovision`` and ``ssh`` on a host with no cloud credentials. The refusal
-of what the port lacks (``lint``) names its ROADMAP item, and a fresh process
-that imports the port's CLI and runs its commands imports neither jax nor the
-JAX package, and no ``requests`` before a cloud command loads the SCP
-provider.
+``deprovision`` and ``ssh`` on a host with no cloud credentials. ``lint``
+runs the port's own static analysis and gives the JAX CLI's rules, exit
+codes and findings. A fresh process that imports the port's CLI and runs its
+commands imports neither jax nor the JAX package, and no ``requests`` before
+a cloud command loads the SCP provider.
 
 End-to-end runs (``cp`` through gateway daemons, ``timeline``, the progress
 bar, ``serve``) are in ``tests/test_torch_cli_e2e.py``.
@@ -306,28 +306,62 @@ def test_cloud_posix_commands_match(tmp_path, configs, args):
         assert got["port"].output.strip().endswith("objects")
 
 
-# ---- what the port lacks refuses, naming its ROADMAP item ----
+# ---- lint: the port's own static analysis, against the JAX CLI's ----
 
 
-_REFUSALS = {
-    "lint": (["lint", "--list-rules"], "ROADMAP queue 1 item 7"),
-}
+def test_lint_lists_the_same_rules_and_severities_as_the_jax_cli(configs):
+    """``lint --list-rules`` through both CLIs: the same rules, in the same
+    order, with the same severities (the descriptions of the retargeted
+    rules are restated for the port)."""
+    got = {pkg: _invoke(pkg, ["lint", "--list-rules"]) for pkg in PKGS}
+    assert got["port"].exit_code == got["ref"].exit_code == 0, got["port"].output
+    rules = {pkg: [tuple(line.split()[:2]) for line in got[pkg].output.splitlines() if line.strip()] for pkg in PKGS}
+    assert rules["port"] == rules["ref"]
+    assert len(rules["port"]) > 20 and {sev for _, sev in rules["port"]} == {"error", "warning"}
 
 
-@pytest.mark.parametrize("case", list(_REFUSALS))
-def test_refusal_names_its_roadmap_item(configs, monkeypatch, case):
-    import skyplane_tpu_torch.utils.networking as networking
+_LINT_FIXTURE = """import threading
+import time
 
-    def no_probe(*a, **kw):
-        raise AssertionError("a refused command probed the network")
 
-    monkeypatch.setattr(networking, "get_public_ip", no_probe)
-    monkeypatch.setattr(networking, "query_which_cloud", no_probe)
-    args, item = _REFUSALS[case]
-    r = _invoke("port", args)
-    assert r.exit_code == 1
-    assert "is not ported to skyplane_tpu_torch yet" in r.output and item in r.output, r.output
-    assert not (configs["port"] / "config").exists(), "a refused command wrote the config"
+class Pump:
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    def start(self):
+        threading.Thread(target=self.loop).start()
+
+    def loop(self):
+        with self._lock:
+            time.sleep(1)
+        x = 1  # sklint: disable=bare-except-in-loop -- stale: no loop here
+        return x
+"""
+
+
+@pytest.mark.parametrize("flags", [[], ["--check-suppressions"]], ids=["plain", "check_suppressions"])
+def test_lint_on_a_fixture_file_exits_and_reports_as_the_jax_cli(configs, monkeypatch, tmp_path, flags):
+    """``lint FILE --json REPORT`` through both CLIs on a file with findings
+    (and a stale suppression): the same exit code, the same findings in the
+    JSON report and the same rendered lines. Each package lints with a cache
+    file of its own."""
+    src = tmp_path / "fixture.py"
+    src.write_text(_LINT_FIXTURE)
+    got, reports = {}, {}
+    for pkg in PKGS:
+        monkeypatch.setenv("SKYPLANE_TPU_SKLINT_CACHE", str(tmp_path / f"cache-{pkg}.json"))
+        out = tmp_path / f"report-{pkg}.json"
+        got[pkg] = _invoke(pkg, ["lint", str(src), "--json", str(out), *flags])
+        reports[pkg] = json.loads(out.read_text())
+    assert got["port"].exit_code == got["ref"].exit_code == 1
+    # the rendered findings; the summary line carries each run's wall time
+    shown = {pkg: [line for line in got[pkg].output.splitlines() if not line.startswith("checked ")] for pkg in PKGS}
+    assert shown["port"] == shown["ref"] and len(shown["port"]) >= 2
+    assert reports["port"]["findings"] == reports["ref"]["findings"]
+    rules = {f["rule"] for f in reports["port"]["findings"]}
+    assert {"thread-no-daemon", "blocking-under-lock"} <= rules
+    assert ("stale-suppression" in rules) == bool(flags)
+    assert set(reports["port"]["rule_counts"]) == set(reports["ref"]["rule_counts"])
 
 
 # ---- init, deprovision and ssh: the cloud commands the IBM Cloud, SCP and
@@ -368,8 +402,8 @@ def _no_outside_host(monkeypatch, pkg):
 def test_cloud_commands_run_as_the_jax_cli_does(configs, monkeypatch, tmp_path, case):
     """``init`` (scripted and ``--non-interactive``), ``deprovision`` and
     ``ssh`` with Azure enabled, on a host with no cloud credentials: the
-    same exit code, output and written config from both CLIs. None refuses
-    any more (``lint`` is the only refusal left)."""
+    same exit code, output and written config from both CLIs. No command of
+    the port's CLI refuses any more."""
     from types import SimpleNamespace
 
     for var in ("IBM_API_KEY", "SCP_ACCESS_KEY", "SCP_SECRET_KEY", "SCP_PROJECT_ID", "AZURE_SUBSCRIPTION_ID"):
@@ -428,6 +462,7 @@ def test_cli_imports_no_jax_nor_requests(tmp_path):
     (tmp_path / "site" / "f.bin").write_bytes(b"f" * 100)
     (tmp_path / "spool").mkdir()
     (tmp_path / "fleet").mkdir()
+    (tmp_path / "lintme.py").write_text("x = 1\n")
     code = (
         "import sys, click\n"
         "from click.testing import CliRunner\n"
@@ -444,7 +479,7 @@ def test_cli_imports_no_jax_nor_requests(tmp_path):
         "runs = [['config', 'list'], ['cloud', 'ls', 'local://' + root + '/site/'],\n"
         "        ['sync', root + '/site', root + '/out', '--watch', '--spool', root + '/spool'],\n"
         "        ['trace', 'export', '-o', root + '/t.json'], ['timeline', '--fleet-dir', root + '/fleet'],\n"
-        "        ['experiments', 'query', 'local:a', 'local:b'], ['lint']]\n"
+        "        ['experiments', 'query', 'local:a', 'local:b'], ['lint', root + '/lintme.py']]\n"
         "def run(args):\n"
         "    res = r.invoke(main, args)\n"
         "    print(args, res.exit_code, res.output.strip()[:200])\n"
@@ -476,6 +511,7 @@ def test_cli_imports_no_jax_nor_requests(tmp_path):
         "sys.exit(1 if bad or not no_requests else 0)\n"
     )
     env = {**os.environ, "SKYPLANE_TPU_CONFIG_ROOT": str(tmp_path / "cfg"),
+           "SKYPLANE_TPU_SKLINT_CACHE": str(tmp_path / "sklint-cache.json"),
            "IBM_CONFIG_FILE": str(tmp_path / "ibm_credentials"), "SCP_CREDENTIAL_FILE": str(tmp_path / "scp_credential")}
     for var in ("IBM_API_KEY", "SCP_ACCESS_KEY", "SCP_SECRET_KEY", "SCP_PROJECT_ID"):
         env.pop(var, None)

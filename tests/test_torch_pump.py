@@ -690,6 +690,23 @@ def test_pump_module_clean_under_fork_and_ipc_rules():
     assert bad == [], [f.render() for f in bad]
 
 
+def test_pump_module_clean_under_the_ports_fork_and_ipc_rules():
+    """The same check through the port's own analysis: no fork-safety or IPC
+    finding over the port's pump.py, and every finding (suppressed ones
+    included) equal to the JAX package's on the same module."""
+    from skyplane_tpu.analysis.core import load_module as ref_load, run_module as ref_run
+    from skyplane_tpu_torch.analysis.core import load_module, run_module
+
+    display = "skyplane_tpu_torch/gateway/pump.py"
+    module, errors = load_module(pump.__file__, display_path=display)
+    assert module is not None and not errors
+    findings = run_module(module)
+    bad = [f for f in findings if not f.suppressed and f.rule in ("fork-with-threads", "unsafe-object-over-ipc", "lock-held-across-fork")]
+    assert bad == [], [f.render() for f in bad]
+    ref_module, _ = ref_load(pump.__file__, display_path=display)
+    assert [f.as_dict() for f in findings] == [f.as_dict() for f in ref_run(ref_module)]
+
+
 # ----------------------------------------------------------- the daemon
 
 
