@@ -214,6 +214,15 @@ class ChunkRequest:
     src_object_store_bucket: Optional[str] = None
     dst_object_store_bucket: Optional[str] = None
 
+    # when the daemon's POST /api/v1/chunk_requests registered this request
+    # (perf_counter_ns, and time.time_ns while tracing): the start of its
+    # chunk.admit span; admit_handles holds the sender operators that have
+    # counted the wait (the POST sets it to an empty set). Not fields, so
+    # never serialized: unset on a request rebuilt from its dict
+    admit_ns = 0
+    admit_wall_ns = 0
+    admit_handles = None
+
     def as_dict(self) -> dict:
         return asdict(self)
 

@@ -684,7 +684,7 @@ class GatewayDaemon:
     def _compression_stats(self) -> dict:
         from skyplane_tpu_torch.ops.pipeline import DataPathStats
 
-        agg = {"chunks": 0, "raw_bytes": 0, "wire_bytes": 0, "segments": 0, "ref_segments": 0, "device_wait_ns": 0}
+        agg = {k: 0 for k in DataPathStats._KEYS}
         hot_path = dict(DataPathStats.EXTERNAL_ZERO)  # pool / batch / donation counters
         for op in self.operators:
             if isinstance(op, GatewaySenderOperator):

@@ -43,6 +43,13 @@ directly:
                                            device, each loaded kernel's library
                                            path, source and build seconds, and
                                            the native host library's build
+  POST /api/v1/profile/device              the port's own route: body
+                                           {"seconds": S}; torch.profiler on
+                                           this daemon's device for S s, its
+                                           operations [name, start_ns,
+                                           end_ns] and spans on one clock,
+                                           idle_by_host (obs/device_trace.py);
+                                           409 while a profiler runs here
   GET  /api/v1/profile/cpu                 per-thread CPU seconds (bottleneck
                                            attribution input)
   GET  /api/v1/profile/stacks              sampling-profiler export: folded
@@ -82,6 +89,7 @@ from __future__ import annotations
 import json
 import queue
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Set
 
@@ -89,6 +97,7 @@ from skyplane_tpu_torch.chunk import ChunkRequest, ChunkState, validate_tenant_i
 from skyplane_tpu_torch.faults import get_injector
 from skyplane_tpu_torch.gateway.chunk_store import ChunkStore
 from skyplane_tpu_torch.gateway.operators.gateway_receiver import GatewayReceiver
+from skyplane_tpu_torch.obs import tracer as obs_tracer
 from skyplane_tpu_torch.utils.logger import logger
 
 
@@ -181,6 +190,7 @@ class GatewayDaemonAPI:
         self.fabric = fabric
 
         self._lock = threading.Lock()
+        self._device_profile_lock = threading.Lock()  # one POST /profile/device at a time
         self._dedup_sources: set = set()  # distinct source gateway ids seen on /servers
         self.chunk_requests: Dict[str, dict] = {}  # chunk_id -> chunk request dict
         self.chunk_status: Dict[str, str] = {}  # chunk_id -> latest aggregate state
@@ -876,8 +886,11 @@ class GatewayDaemonAPI:
             # dispatched (and unaccounted) prefix running through the data
             # plane while the client is told the batch was refused
             parsed = []
+            admit_ns = time.perf_counter_ns()
+            admit_wall_ns = time.time_ns() if obs_tracer.get_tracer().enabled else 0
             for d in body:
                 cr = ChunkRequest.from_dict(d)
+                cr.admit_ns, cr.admit_wall_ns, cr.admit_handles = admit_ns, admit_wall_ns, set()
                 tenant_id = validate_tenant_id(cr.chunk.tenant_id)
                 if (
                     self.require_admission
@@ -908,6 +921,8 @@ class GatewayDaemonAPI:
                 for tenant_id, (n_chunks, n_bytes) in tenant_acct.items():
                     self.tenant_registry.note_chunks_registered(tenant_id, n_chunks, n_bytes)
             req._send(200, {"status": "ok", "registered": n})
+        elif path == "/api/v1/profile/device":
+            self._profile_device(req)
         elif path == "/api/v1/upload_id_maps":
             body = req._read_json()
             self.upload_id_map_update(body)
@@ -946,6 +961,37 @@ class GatewayDaemonAPI:
                 req._send(200, {"status": "ok", "members": len(body.get("members") or [])})
         else:
             req._send(404, {"error": f"no route {req.path}"})
+
+    #: longest window POST /api/v1/profile/device traces
+    MAX_DEVICE_PROFILE_S = 60.0
+
+    def _profile_device(self, req) -> None:
+        """POST /api/v1/profile/device: trace this daemon's device for the
+        body's ``seconds`` and answer with ``obs.device_trace.profile_device``'s
+        result. The profiler is imported here, never at daemon start."""
+        body = req._read_json()
+        try:
+            seconds = float((body or {}).get("seconds", 1.0))
+        except (TypeError, ValueError, AttributeError):
+            seconds = float("nan")
+        if not 0 < seconds <= self.MAX_DEVICE_PROFILE_S:
+            req._send(400, {"error": f"seconds must be in (0, {self.MAX_DEVICE_PROFILE_S:g}]"})
+            return
+        if not self._device_profile_lock.acquire(blocking=False):
+            req._send(409, {"error": "a device profile is already running on this gateway"})
+            return
+        try:
+            from skyplane_tpu_torch.obs import device_trace
+
+            try:
+                out = device_trace.profile_device(seconds, self.device, obs_tracer.get_tracer())
+            except device_trace.ProfilerBusy as e:
+                req._send(409, {"error": str(e)})
+                return
+        finally:
+            self._device_profile_lock.release()
+        out["gateway_id"] = self.gateway_id
+        req._send(200, out)
 
     def _handle_delete(self, req) -> None:
         path, _ = self._split_route(req)

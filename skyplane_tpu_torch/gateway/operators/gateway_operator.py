@@ -1001,7 +1001,38 @@ class GatewaySenderOperator(GatewayOperator):
                 break
             batch.append(req)
             total += req.chunk.chunk_length_bytes
+        self._admit(batch)
         return batch
+
+    def _admit(self, batch: List[ChunkRequest]) -> None:
+        """Count each dequeued request's wait since the POST that registered
+        it (``admit_wait_ns``) once in this operator: a request requeued
+        after a NACK, a dead socket or a shutdown comes back as the same
+        object, and multicast branches share it, so the request keeps the
+        handles that counted it. A traced chunk records the wait as its
+        ``chunk.admit`` span, the parent of this worker's ``wire.frame``."""
+        tracer = get_tracer()
+        if tracer.enabled:
+            self._local.admit_spans = {}
+        now = time.perf_counter_ns()
+        for req in batch:
+            counted = req.admit_handles
+            if counted is None or self.handle in counted:
+                continue  # not registered by this daemon's POST (pump worker), or a requeue
+            counted.add(self.handle)  # one handle per operator; set.add is atomic
+            wait = now - req.admit_ns
+            self.processor.stats.add("admit_wait_ns", wait)
+            cid = req.chunk.chunk_id
+            if req.admit_wall_ns and tracer.enabled and (req.chunk.traced or tracer.sampled(cid)):
+                self._local.admit_spans[cid] = tracer.record_span(
+                    "chunk.admit",
+                    wait,
+                    req.admit_wall_ns,
+                    trace_id=cid,
+                    cat="sender",
+                    force=True,
+                    args=self._frame_span_args(req),
+                )
 
     def _header_from_meta(self, chunk, meta: dict, length: int, n_left: int) -> WireProtocolHeader:
         """Rebuild the per-send wire header from cached send-invariant meta
@@ -1138,7 +1169,11 @@ class GatewaySenderOperator(GatewayOperator):
 
     def _frame_chunk(self, chunk_req: ChunkRequest, view: Optional[_WindowFpView], n_left: int):
         """Build (payload, wire, header) for one chunk. payload is None on the
-        relay path (opaque staged bytes re-framed with their original header)."""
+        relay path (opaque staged bytes re-framed with their original header).
+        Times the codec path's stages into the processor's stats
+        (``read_ns``, ``encode_ns``, ``seal_ns``) and, for a chunk the framer
+        traces, records them as the spans ``chunk.read``, ``datapath.encode``
+        and ``wire.seal``."""
         chunk = chunk_req.chunk
         # a staged-file fd the pump parent passed for raw forwarding that the
         # raw path did not consume (ineligible/disabled): close it here so
@@ -1164,25 +1199,31 @@ class GatewaySenderOperator(GatewayOperator):
                 n_chunks_left_on_socket=n_left,
                 tenant_id=meta.get("tenant", DEFAULT_TENANT_ID),
             )
-        data = fpath.read_bytes()
-        payload = self.processor.process(data, view if view is not None else self.dedup_index)
+        # each stage inside the chunk's wire.frame, traced on the framer's decision
+        tracer, add = get_tracer(), self.processor.stats.add
+        cid, force = chunk.chunk_id, bool(chunk.traced)
+        with tracer.timed("chunk.read", add, "read_ns", trace_id=cid, cat="sender", force=force):
+            data = fpath.read_bytes()
+        with tracer.timed("datapath.encode", add, "encode_ns", trace_id=cid, cat="sender", force=force):
+            payload = self.processor.process(data, view if view is not None else self.dedup_index)
         if view is not None:
             # later chunks in this window may REF these (in-order socket)
             view.pending.update(fp for fp, _ in payload.new_fingerprints)
-        wire = payload.wire_bytes
-        if self.cipher is not None:
-            wire = self.cipher.seal(wire)
-        chunk.fingerprint = payload.fingerprint
-        header = chunk.to_wire_header(
-            n_chunks_left_on_socket=n_left,
-            wire_length=len(wire),
-            raw_wire_length=payload.raw_len,
-            codec=payload.codec,
-            is_compressed=payload.is_compressed,
-            is_encrypted=self.cipher is not None,
-            is_recipe=payload.is_recipe,
-        )
-        self._maybe_seal(chunk, payload, wire, header)
+        with tracer.timed("wire.seal", add, "seal_ns", trace_id=cid, cat="sender", force=force):
+            wire = payload.wire_bytes
+            if self.cipher is not None:
+                wire = self.cipher.seal(wire)
+            chunk.fingerprint = payload.fingerprint
+            header = chunk.to_wire_header(
+                n_chunks_left_on_socket=n_left,
+                wire_length=len(wire),
+                raw_wire_length=payload.raw_len,
+                codec=payload.codec,
+                is_compressed=payload.is_compressed,
+                is_encrypted=self.cipher is not None,
+                is_recipe=payload.is_recipe,
+            )
+            self._maybe_seal(chunk, payload, wire, header)
         return payload, wire, header
 
     def _register_batch(self, batch: List[ChunkRequest]) -> None:
@@ -1299,21 +1340,12 @@ class GatewaySenderOperator(GatewayOperator):
         # decision rides the pre-registration, so a relay whose local rate
         # would miss this id still records its hop of the path
         traced = tracer.enabled and (bool(req.chunk.traced) or tracer.sampled(req.chunk.chunk_id))
-        span = (
-            tracer.span(
-                "wire.frame",
-                trace_id=req.chunk.chunk_id,
-                cat="sender",
-                force=True,
-                args=self._frame_span_args(req),
-            )
-            if traced
-            else NOOP_SPAN
-        )
+        span = self._frame_span(req) if traced else NOOP_SPAN
         # n_left=0: the reference-compat window countdown has no meaning on a
         # continuous stream (receivers ignore it; docs/wire_protocol.md) —
         # the one header field where serial and pipelined frames differ
         with span:
+            frame_span = tracer.current_span_id()  # handed to the pump and reaper threads
             raw = self._raw_frame_chunk(req, n_left=0)
             if raw is not None:
                 # raw-forward: the staged file IS the wire payload; the pump
@@ -1322,7 +1354,9 @@ class GatewaySenderOperator(GatewayOperator):
                 source, header, relay = raw
                 if traced and not relay:
                     header.flags |= ChunkFlags.TRACED
-                return WireFrame(req, header, b"", relay=relay, window=window, traced=traced, raw=source)
+                frame = WireFrame(req, header, b"", relay=relay, window=window, traced=traced, raw=source)
+                frame.span_parent = frame_span
+                return frame
             payload, wire, header = self._frame_chunk(req, view, n_left=0)
         if traced and payload is not None:
             # stamp the sampling decision into the wire header so the
@@ -1330,7 +1364,7 @@ class GatewaySenderOperator(GatewayOperator):
             # rate — sender and receiver stitch into one timeline. Relay
             # frames keep their original header (opaque re-framed bytes).
             header.flags |= ChunkFlags.TRACED
-        return WireFrame(
+        frame = WireFrame(
             req,
             header,
             wire,
@@ -1339,6 +1373,21 @@ class GatewaySenderOperator(GatewayOperator):
             relay=payload is None,
             window=window,
             traced=traced,
+        )
+        frame.span_parent = frame_span
+        return frame
+
+    def _frame_span(self, req: ChunkRequest):
+        """A traced chunk's ``wire.frame`` span, child of the ``chunk.admit``
+        this worker recorded when it dequeued the chunk."""
+        admitted = getattr(self._local, "admit_spans", None) or {}
+        return get_tracer().span(
+            "wire.frame",
+            trace_id=req.chunk.chunk_id,
+            cat="sender",
+            force=True,
+            args=self._frame_span_args(req),
+            parent=admitted.get(req.chunk.chunk_id),
         )
 
     def _process_batch_serial(self, batch: List[ChunkRequest], worker_id: int) -> List[bool]:
@@ -1362,20 +1411,11 @@ class GatewaySenderOperator(GatewayOperator):
                     break  # shutdown mid-window: un-sent chunks re-queue below
                 acquired.append(req)
                 traced = tracer.enabled and (bool(req.chunk.traced) or tracer.sampled(req.chunk.chunk_id))
-                span = (
-                    tracer.span(
-                        "wire.frame",
-                        trace_id=req.chunk.chunk_id,
-                        cat="sender",
-                        force=True,
-                        args=self._frame_span_args(req),
-                    )
-                    if traced
-                    else NOOP_SPAN
-                )
+                span = self._frame_span(req) if traced else NOOP_SPAN
                 raw = None
                 payload = wire = None
                 with span:
+                    frame_span = tracer.current_span_id()
                     # serial raw-forward: per-worker eligibility mirrors the
                     # engine's per-stream raw_ok — one raw-send error flips
                     # this worker to the codec path for its lifetime
@@ -1396,6 +1436,7 @@ class GatewaySenderOperator(GatewayOperator):
                         cat="sender",
                         force=True,
                         args=self._frame_span_args(req),
+                        parent=frame_span,
                     )
                     if traced
                     else NOOP_SPAN

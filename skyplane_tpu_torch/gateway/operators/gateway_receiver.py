@@ -79,6 +79,15 @@ DECODE_COUNTER_ZERO = {
     "decode_nacks": 0,
     "decode_queue_depth": 0,
     "decode_ns": 0,
+    # the port's stage timings of decoded chunks (ns; each the interval of
+    # the span named beside it, docs/observability_torch.md): the frame's last
+    # byte received -> a decode worker starting it (decode.queue), AES-GCM
+    # open (decode.open), the codec/recipe restore (decode.restore), the
+    # chunk-file landing (store.write); decode_ns spans the last three
+    "decode_queue_ns": 0,
+    "decode_open_ns": 0,
+    "restore_ns": 0,
+    "land_ns": 0,
     "store_mem_hits": 0,
     "store_spill_reads": 0,
     "store_promotions": 0,
@@ -130,14 +139,32 @@ def put_drop_oldest(q: "queue.Queue[dict]", event: dict) -> bool:
 
 
 class _DecodeTask:
-    """One framed chunk handed from a connection's framing loop to the pool."""
+    """One framed chunk handed from a connection's framing loop to the pool.
+    ``recv_ns`` (perf_counter_ns) and ``recv_wall_ns`` stamp its last byte's
+    arrival; ``span_parent`` is its ``frame.recv`` span (0 when untraced)."""
 
-    __slots__ = ("header", "payload", "state", "done", "outcome", "detail", "raw_len", "decode_ns", "fpath")
+    __slots__ = (
+        "header",
+        "payload",
+        "state",
+        "done",
+        "outcome",
+        "detail",
+        "raw_len",
+        "decode_ns",
+        "fpath",
+        "recv_ns",
+        "recv_wall_ns",
+        "span_parent",
+    )
 
     def __init__(self, header: WireProtocolHeader, payload: bytes, state: "_ConnState"):
         self.header = header
         self.payload = payload
         self.state = state
+        self.recv_ns = time.perf_counter_ns()
+        self.recv_wall_ns = 0
+        self.span_parent = 0
         self.done = False  # set (under state.lock) when the worker finished
         self.outcome = "fatal"  # ack | nack | payload_error | fatal
         self.detail = ""
@@ -341,6 +368,10 @@ class GatewayReceiver:
             "decode_wire_bytes": 0,
             "decode_busy": 0,
             "decode_ns": 0,
+            "decode_queue_ns": 0,
+            "decode_open_ns": 0,
+            "restore_ns": 0,
+            "land_ns": 0,
         }
         self._decode_threads: List[threading.Thread] = []
         for i in range(decode_workers):
@@ -518,20 +549,22 @@ class GatewayReceiver:
                 except (ConnectionError, OSError):
                     break  # clean peer close
                 t0 = time.time()
+                tracer = get_tracer()
                 recv_span = (
-                    get_tracer().span(
+                    tracer.span(
                         "frame.recv",
                         trace_id=header.chunk_id,
                         cat="receiver",
                         force=header.is_traced,
                         args=self._span_args,
                     )
-                    if get_tracer().enabled
+                    if tracer.enabled
                     else NOOP_SPAN
                 )
                 try:
                     with recv_span:
                         payload = self._recv_exact(conn, header.data_len)
+                        recv_parent = tracer.current_span_id()  # handed to the decode worker
                 except (ConnectionError, OSError) as e:
                     # peer died mid-payload (e.g. sender resetting a broken socket
                     # before retrying) — drop the partial chunk, it will be re-sent
@@ -544,6 +577,8 @@ class GatewayReceiver:
                     with self._lock:
                         self._socket_events_dropped += 1
                 task = _DecodeTask(header, payload, state)
+                if recv_parent:
+                    task.span_parent, task.recv_wall_ns = recv_parent, time.time_ns()
                 with state.lock:
                     if state.dead:
                         break
@@ -627,28 +662,47 @@ class GatewayReceiver:
         tmp.write_bytes(data)
         os.replace(tmp, fpath)
 
+    def _timed(self, name: str, key: str, header: WireProtocolHeader, times: dict):
+        """A decode stage timed into ``times[key]`` and, for a traced chunk,
+        into its span under the chunk's decode span."""
+        return get_tracer().timed(
+            name, times.__setitem__, key, trace_id=header.chunk_id, cat="receiver", force=header.is_traced,
+            args=self._span_args,
+        )
+
     def _process_task(self, task: _DecodeTask) -> None:
         """Decrypt/decode/land one chunk; record the outcome for the in-order
         response drain. Never raises — every failure maps to an outcome."""
         header, state = task.header, task.state
+        t0 = time.perf_counter_ns()
+        queue_ns = t0 - task.recv_ns
+        # this chunk's stage timings, added to the decode counters once it landed
+        times = {"decode_queue_ns": queue_ns, "decode_open_ns": 0, "restore_ns": 0, "land_ns": 0}
         tracer = get_tracer()
         # the sender's TRACED header flag forces the span past the local
         # sampling decision: both sides of the wire trace the SAME chunks
-        span = (
-            tracer.span(
-                "decode", trace_id=header.chunk_id, cat="receiver", force=header.is_traced, args=self._span_args
+        if tracer.enabled:
+            if task.span_parent:
+                tracer.record_span(
+                    "decode.queue",
+                    queue_ns,
+                    task.recv_wall_ns,
+                    trace_id=header.chunk_id,
+                    cat="receiver",
+                    force=header.is_traced,
+                    args=self._span_args,
+                    parent=task.span_parent,
+                )
+            span = tracer.span(
+                "decode",
+                trace_id=header.chunk_id,
+                cat="receiver",
+                force=header.is_traced,
+                args=self._span_args,
+                parent=task.span_parent,
             )
-            if tracer.enabled
-            else NOOP_SPAN
-        )
-        store_span = lambda: (  # noqa: E731 — nested under the decode span
-            tracer.span(
-                "store.write", trace_id=header.chunk_id, cat="receiver", force=header.is_traced, args=self._span_args
-            )
-            if tracer.enabled
-            else NOOP_SPAN
-        )
-        t0 = time.perf_counter_ns()
+        else:
+            span = NOOP_SPAN
         try:
           with span:
             with state.lock:
@@ -661,7 +715,7 @@ class GatewayReceiver:
                 return
             fpath = self.chunk_store.chunk_path(header.chunk_id)
             if self.raw_forward:
-                with store_span():
+                with self._timed("store.write", "land_ns", header, times):
                     self._land(fpath, task.payload)
                     self._land(
                         fpath.with_suffix(".hdr"),
@@ -688,7 +742,8 @@ class GatewayReceiver:
                         raise SkyplaneTpuException(
                             f"unencrypted frame for chunk {header.chunk_id} at E2EE-enabled receiver"
                         )
-                    payload = self.cipher.open(payload)
+                    with self._timed("decode.open", "decode_open_ns", header, times):
+                        payload = self.cipher.open(payload)
                 elif header.is_encrypted:
                     raise SkyplaneTpuException("received encrypted chunk but no E2EE key configured")
                 try:
@@ -699,13 +754,14 @@ class GatewayReceiver:
                         # affected fps and resends literals, the connection
                         # stays up (the cheapest recovery contract)
                         inj.check("receiver.decode_nack", DedupIntegrityException, "injected decode fault")
-                    data = self.processor.restore(
-                        payload,
-                        header,
-                        store=self.segment_store,
-                        ref_wait_timeout=self.ref_wait_timeout,
-                        pooled=True,
-                    )
+                    with self._timed("decode.restore", "restore_ns", header, times):
+                        data = self.processor.restore(
+                            payload,
+                            header,
+                            store=self.segment_store,
+                            ref_wait_timeout=self.ref_wait_timeout,
+                            pooled=True,
+                        )
                 except DedupIntegrityException as e:
                     # a REF pointed at a segment this receiver no longer
                     # holds (evicted / never arrived). The stream is still
@@ -718,15 +774,12 @@ class GatewayReceiver:
                         self.tenant_registry.note_nack(header.tenant_id)
                     logger.fs.warning(f"[receiver:{state.port}] nacking chunk {header.chunk_id}: {e}")
                     return
+                # zero-copy handoff: a pooled view goes straight to the chunk
+                # file and the buffer recycles for the next decode
+                with self._timed("store.write", "land_ns", header, times):
+                    self._land(fpath, data.view if isinstance(data, PooledChunk) else data)
                 if isinstance(data, PooledChunk):
-                    # zero-copy handoff: the pooled view goes straight to the
-                    # chunk file and the buffer recycles for the next decode
-                    with store_span():
-                        self._land(fpath, data.view)
                     data.release()
-                else:
-                    with store_span():
-                        self._land(fpath, data)
             # .done is NOT touched here: with out-of-order decode, chunks
             # landed behind a frame whose in-order response later fails would
             # otherwise be exposed to downstream operators and then REWRITTEN
@@ -743,6 +796,8 @@ class GatewayReceiver:
                 self._decode_stats["decode_raw_bytes"] += header.raw_data_len
                 self._decode_stats["decode_wire_bytes"] += header.data_len
                 self._decode_stats["decode_ns"] += task.decode_ns
+                for key, ns in times.items():
+                    self._decode_stats[key] += ns
             self._decode_hist.observe(task.decode_ns / 1e9)
             if put_drop_oldest(
                 self.decode_profile_events,

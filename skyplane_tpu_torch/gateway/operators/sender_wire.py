@@ -274,6 +274,7 @@ class WireFrame:
         "window",
         "traced",
         "counted_retry",
+        "span_parent",
     )
 
     def __init__(
@@ -301,6 +302,7 @@ class WireFrame:
         self.sent_wall_ns = 0
         self.window = window  # optional per-window stats carrier (profile events)
         self.traced = traced  # chunk sampled for tracing (mirrors the header's TRACED flag)
+        self.span_parent = 0  # the wire.frame span: parent of wire.send and wire.ack_lag
         # False on shutdown-path requeues (abort/close): those are the silent
         # requeue contract, not failures — only real retries (socket death,
         # NACK resend) count against the chunk's retry budget
@@ -805,7 +807,12 @@ class SenderWireEngine:
         if frame is not None:
             send_span = (
                 get_tracer().span(
-                    "wire.send", trace_id=frame.header.chunk_id, cat="sender", force=True, args=self._span_args
+                    "wire.send",
+                    trace_id=frame.header.chunk_id,
+                    cat="sender",
+                    force=True,
+                    args=self._span_args,
+                    parent=frame.span_parent,
                 )
                 if frame.traced
                 else NOOP_SPAN
@@ -940,6 +947,7 @@ class SenderWireEngine:
                     cat="sender",
                     force=True,
                     args=self._span_args,
+                    parent=frame.span_parent,
                 )
             with self._completion_cond:
                 self._completion_q.append((stream, frame, b))

@@ -28,6 +28,12 @@ Two-phase completion: ``BatchHandle.ends`` unblocks when call A + host
 boundary selection finish, while call B and its readback are still in
 flight; ``BatchHandle.fps`` then finalizes the worker's OWN digests from the
 batched lanes.
+
+Spans (docs/observability_torch.md): ``batch.window_wait`` around the leader's
+window, ``batch.device_wait`` (async) for a worker blocked on a batch another
+worker runs; ``FusedCDCFP`` records ``device.stage``, ``fused.dispatch`` and
+``fused.readback``. The counter ``window_wait_ns`` times the same interval
+as ``batch.window_wait``, always on.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from skyplane_tpu_torch.obs.tracer import get_tracer
 from skyplane_tpu_torch.ops.bufpool import BufferPool, bucket_size
 from skyplane_tpu_torch.ops.cdc import CDCParams
 from skyplane_tpu_torch.ops.fused_cdc import FusedCDCFP, finalize_row
@@ -67,7 +74,14 @@ class _Entry:
 class BatchHandle:
     """Per-submission two-phase result. ``ends()`` unblocks when boundary
     selection lands; ``fps()`` finalizes this row's digests in the calling
-    worker's thread. ``wait_ns`` accumulates the time spent blocked."""
+    worker's thread.
+
+    ``wait_ns`` (the sender's ``device_wait_ns``) is the time this worker
+    spent blocked in ``ends()`` and ``fps()`` on a batch that another worker
+    runs. A worker that leads its window, or fills it, runs the batch inside
+    ``submit``: its window wait (``batch.window_wait``) and the batch's
+    dispatch and readback (``fused.dispatch``, ``fused.readback``) are over
+    before the handle exists and are not counted here."""
 
     def __init__(self, entry: _Entry):
         self._entry = entry
@@ -77,7 +91,12 @@ class BatchHandle:
         if not event.is_set():
             t0 = time.perf_counter_ns()
             event.wait(timeout=600)
-            self.wait_ns += time.perf_counter_ns() - t0
+            waited = time.perf_counter_ns() - t0
+            self.wait_ns += waited
+            tracer = get_tracer()
+            if tracer.enabled:
+                # async track: many workers wait on one batch concurrently
+                tracer.record_span("batch.device_wait", waited, time.time_ns() - waited, cat="device")
         if not event.is_set():
             raise TimeoutError("device batch runner stalled")
         if self._entry.error is not None:
@@ -124,7 +143,14 @@ class DeviceBatchRunner:
         self._open: Dict[int, List[_Entry]] = {}  # bucket -> entries of the open window
         self._in_flight: Dict[int, int] = {}  # bucket -> batches executing
         self.pool = pool if pool is not None else BufferPool()
-        self._counters = {"batch_windows": 0, "batch_rows": 0, "batch_padded_rows": 0, "spmd_batches": 0, "spmd_check_batches": 0}
+        self._counters = {
+            "batch_windows": 0,
+            "batch_rows": 0,
+            "batch_padded_rows": 0,
+            "spmd_batches": 0,
+            "spmd_check_batches": 0,
+            "window_wait_ns": 0,  # leaders' window waits: the batch.window_wait spans' interval
+        }
         self._stage_failures: Dict[int, int] = {}
         # the first window pays the kernels' lazy build (nvcc at first use)
         # and first launch: journal it as phase.first_compile so the job
@@ -230,7 +256,10 @@ class DeviceBatchRunner:
         if to_run is not None:
             self._run_batch(to_run)
         elif leader:
-            to_run, ceiling_flush = self._lead_window(entry, bucket)
+            tracer = get_tracer()
+            args = {"bucket": bucket} if tracer.enabled else None
+            with tracer.timed("batch.window_wait", self._count, "window_wait_ns", cat="device", args=args):
+                to_run, ceiling_flush = self._lead_window(entry, bucket)
             if to_run is not None:
                 if ceiling_flush:
                     # the previous batch blew the ceiling and may be wedged: run
@@ -257,6 +286,10 @@ class DeviceBatchRunner:
                     return group_now, busy and now >= hard_deadline
                 remaining = (deadline - now) if now < deadline else (hard_deadline - now)
                 self._cond.wait(timeout=max(remaining, 0.001))
+
+    def _count(self, key: str, n: int) -> None:
+        with self._lock:
+            self._counters[key] += n
 
     def cdc_and_fps(self, arr: np.ndarray, padded: Optional[np.ndarray] = None) -> Tuple[np.ndarray, List[bytes]]:
         """Blocking single-phase form: (segment ends, 16-byte fingerprints)."""

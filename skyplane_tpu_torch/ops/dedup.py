@@ -486,7 +486,8 @@ class SegmentStore:
             tmp = p.with_name(f"{p.name}.tmp{threading.get_ident()}")
             try:
                 inj = _get_injector()
-                with _get_tracer().span("spill.write", cat="store", args={"bytes": len(data)}):
+                tracer = _get_tracer()
+                with tracer.span("spill.write", cat="store", args={"bytes": len(data)} if tracer.enabled else None):
                     if inj.enabled:
                         inj.check("store.spill_write", OSError, "injected spill-write failure")
                     tmp.write_bytes(data)

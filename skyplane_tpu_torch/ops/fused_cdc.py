@@ -33,6 +33,12 @@ selects boundaries over every row between them.
 The JAX package's HBM donation has no counterpart here (PyTorch's caching
 allocator reuses the batch's memory once the stream is done with it); the
 ``donated_batches`` counter stays 0 so the stats key schema is unchanged.
+
+Spans (docs/observability_torch.md): ``device.stage`` around one row's upload at
+submit, ``fused.dispatch`` around ``dispatch`` (call A, its candidate
+readback, host selection, call B enqueued), ``fused.readback`` around the
+lanes' wait. ``stage_ns``, ``stage_bytes`` and ``stage_rows`` count the
+uploads over the ``device.stage`` interval, always on.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from skyplane_tpu_torch.obs.tracer import NOOP_SPAN, get_tracer
 from skyplane_tpu_torch.ops import kernels
 from skyplane_tpu_torch.ops.backend import on_stream, record_event, resolve_device
 from skyplane_tpu_torch.ops.cdc import CDCParams, select_boundaries
@@ -121,9 +128,11 @@ class PendingBatch:
         """[B, n_slots, 8] uint32 lanes; blocks until the readback lands.
         Idempotent; releases the per-batch scratch on first completion."""
         if self._lanes is None:
-            for event in self._events:
-                event.synchronize()
-            self._lanes = self._lanes_host.numpy().view(np.uint32).copy()
+            tracer = get_tracer()
+            with tracer.span("fused.readback", cat="device", args={"rows": self.b}) if tracer.enabled else NOOP_SPAN:
+                for event in self._events:
+                    event.synchronize()
+                self._lanes = self._lanes_host.numpy().view(np.uint32).copy()
             self._lanes_host, self._events, self._keep = None, (), None
             if self._ends_scratch is not None:
                 self._fused.release_scratch(self._ends_scratch)
@@ -160,6 +169,7 @@ class FusedCDCFP:
         self._stage_stream = torch.cuda.Stream(self.device) if cuda else None  # submit-time row uploads
         self._lock = threading.Lock()
         self.overflow_rows = 0  # rows recomputed on the host (candidate count above the cap)
+        self._stage = {"stage_ns": 0, "stage_bytes": 0, "stage_rows": 0}  # the device.stage uploads
         self._launches: dict = {}  # this driver's kernel launches (kernels.launch_tally)
         # mesh mode (the counterpart of make_sharded_kernels): the batch splits
         # into one contiguous row group per position that shards over
@@ -185,17 +195,27 @@ class FusedCDCFP:
         """Upload ONE padded row at submit time, synchronously on the staging
         stream: when this returns the bytes are on the card, so the caller
         may recycle ``padded`` (a pooled host buffer) at once."""
-        if self._stage_stream is None:
-            return self._upload(padded)
-        with torch.cuda.stream(self._stage_stream):
-            return self._upload(padded)
+        tracer = get_tracer()
+        args = {"bytes": len(padded)} if tracer.enabled else None
+        with tracer.timed("device.stage", self._count_stage, len(padded), cat="device", args=args):
+            if self._stage_stream is None:
+                return self._upload(padded)
+            with torch.cuda.stream(self._stage_stream):
+                return self._upload(padded)
+
+    def _count_stage(self, nbytes: int, ns: int) -> None:
+        with self._lock:
+            self._stage["stage_ns"] += ns
+            self._stage["stage_bytes"] += nbytes
+            self._stage["stage_rows"] += 1
 
     def release_scratch(self, arr: np.ndarray) -> None:
         if self.pool is not None:
             self.pool.release_scratch(arr)
 
     def counters(self) -> dict:
-        return {"donated_batches": 0}
+        with self._lock:
+            return {"donated_batches": 0, **self._stage}
 
     def launch_counts(self) -> dict:
         """Kernel launches made by this driver (name -> launches), apart from
@@ -217,7 +237,9 @@ class FusedCDCFP:
         staging failed) carry the compute input when given; host rows are
         then only read on the candidate-overflow fallback.
         """
-        with kernels.launch_tally(self._launches):
+        tracer = get_tracer()
+        span = tracer.span("fused.dispatch", cat="device", args={"rows": len(lens)}) if tracer.enabled else NOOP_SPAN
+        with span, kernels.launch_tally(self._launches):
             return self._dispatch(batch, lens, dev_rows)
 
     def _dispatch(self, batch, lens, dev_rows: Optional[list]) -> PendingBatch:

@@ -129,9 +129,21 @@ class DataPathStats:
     GIL-atomic increments, merged in ``as_dict``). External counters (pool,
     batch runner) merge in through registered sources over a zero-filled
     default set, so the key schema is the JAX package's whether or not those
-    subsystems are active."""
+    subsystems are active, plus the port's stage timings.
 
-    _KEYS = ("chunks", "raw_bytes", "wire_bytes", "segments", "ref_segments", "device_wait_ns")
+    ``device_wait_ns``: time a worker was blocked on ends and fingerprints of
+    a batch another worker ran (``BatchHandle.wait_ns``); not the leader's
+    window wait, nor a batch the worker ran itself inside ``submit``.
+
+    Stage timings (ns, always on; each the interval of the span named beside
+    it, docs/observability_torch.md), counted by the sender operator that owns
+    this processor: ``admit_wait_ns`` (``chunk.admit``: the POST that
+    registered a chunk to the sender worker that dequeued it), ``read_ns``
+    (``chunk.read``), ``encode_ns`` (``datapath.encode``: ``process``),
+    ``seal_ns`` (``wire.seal``)."""
+
+    STAGE_KEYS = ("admit_wait_ns", "read_ns", "encode_ns", "seal_ns")
+    _KEYS = ("chunks", "raw_bytes", "wire_bytes", "segments", "ref_segments", "device_wait_ns") + STAGE_KEYS
     EXTERNAL_ZERO = {
         "pool_hits": 0,
         "pool_misses": 0,
@@ -147,6 +159,10 @@ class DataPathStats:
         "batch_occupancy": 0.0,
         "stage_failures": 0,
         "donated_batches": 0,
+        "window_wait_ns": 0,
+        "stage_ns": 0,
+        "stage_bytes": 0,
+        "stage_rows": 0,
     }
 
     def __init__(self):
@@ -175,6 +191,10 @@ class DataPathStats:
     def observe_device_wait(self, ns: int) -> None:
         if ns:
             self._shard()["device_wait_ns"] += int(ns)
+
+    def add(self, key: str, n: int) -> None:
+        """Add ``n`` to one of the stage timings on this thread's shard."""
+        self._shard()[key] += n
 
     def add_source(self, fn: Callable[[], dict]) -> None:
         with self._lock:

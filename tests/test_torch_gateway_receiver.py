@@ -110,6 +110,10 @@ def _run(pkg, tmp_path, decode_workers):
     return results, files, counters
 
 
+# the port's decode stage timings (docs/observability_torch.md), which the JAX receiver does not count
+PORT_DECODE_STAGE_KEYS = {"decode_queue_ns", "decode_open_ns", "restore_ns", "land_ns"}
+
+
 @pytest.mark.parametrize("decode_workers", [1, 8])
 def test_receiver_acks_and_files_equal_the_reference(tmp_path, decode_workers):
     port_resp, port_files, port_counters = _run("port", tmp_path, decode_workers)
@@ -117,7 +121,8 @@ def test_receiver_acks_and_files_equal_the_reference(tmp_path, decode_workers):
     expected = ACK_BYTE * 3 + NACK_UNRESOLVED + ACK_BYTE
     assert port_resp == ref_resp == [expected, expected]
     assert port_files == ref_files
-    assert set(port_counters) == set(ref_counters) and set(DECODE_COUNTER_ZERO) <= set(port_counters)
+    assert set(port_counters) == set(ref_counters) | PORT_DECODE_STAGE_KEYS
+    assert set(DECODE_COUNTER_ZERO) <= set(port_counters)
     for k in ("decode_workers", "decode_chunks", "decode_raw_bytes", "decode_wire_bytes", "decode_nacks", "store_ref_timeouts"):
         assert port_counters[k] == ref_counters[k], k
 

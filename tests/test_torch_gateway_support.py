@@ -211,8 +211,9 @@ _COPIED = [
 ]
 # names the port adds (its own control client, the scheduler's resource names,
 # the daemon's device and SPMD mode, the pump worker's device and runtime
-# report); it leaves none out
+# report, the tracer's stage timer); it leaves none out
 _ADDED = {
+    "obs.tracer": {"_Timer"},
     "gateway.control_auth": {"ControlRequestError", "ControlResponse", "ControlSession", "ControlTimeout"},
     "gateway.preempt": {"ControlRequestError", "control_session"},
     "gateway.gateway_daemon": {"resolve_device", "spmd_mode"},
