@@ -1,11 +1,46 @@
-"""The system under test: one source gateway daemon and one destination
-daemon per sink, ``skyplane_tpu_torch`` ``GatewayDaemon``s talking over
-loopback TCP, driven through their control APIs.
+"""The system under test, and the contract of every fleet the harness runs.
 
-The programs are the ones the port's planner writes for a ``local`` copy:
-the source ``read_local`` -> ``send`` (through ``mux_and`` to every sink
-when there is more than one), each sink ``receive`` -> ``write_local``
-under a root of its own.
+A configuration file (``port_bench/configs/<name>.json``) names its fleet by
+a ``fleet`` key: a path from the repository root to a Python file that
+defines ``Fleet``. Without the key the harness runs ``Fleet`` of this
+module, the star fleet. What the harness calls on a fleet:
+
+- ``Fleet(cfg, work, key, chips)``: the configuration as run, the run's own
+  directory, the deployment's end-to-end key (AES-256) and the cell's
+  number of chips. Called before torch is imported, so that daemons in
+  processes of their own boot while the harness loads it: a fleet module
+  imports no torch at module level. A key of ``cfg`` that the fleet cannot
+  run makes it raise an error naming the key.
+- ``start_source(device)``: the source daemon, in this process on
+  ``device``, once the others answer. Kernels launched in this process are
+  the ones the harness's device trace sees.
+- ``source.post(route, body)``: a control-API POST to the source, by which
+  every chunk request goes in; ``source.senders()``: its sender operators,
+  whose frames the recipe check taps, one stream a target gateway.
+- ``sinks``: the gateways whose landed files the check reads,
+  ``cfg["sinks"]`` of them in the order of ``cfg["sink_regions"]``, each
+  with ``root`` (the directory it writes each ``dest_key`` under) and
+  ``gateway_id``.
+- ``counters()``: counter groups by name, taken before and after the window;
+  the metric readers read them through ``run.delta(group, key)``. The star
+  fleet's groups are ``sender`` and ``wire`` (summed over the source's
+  sender operators), ``runner`` (the source's batch runner) and ``decode``
+  (summed over each sink's ``decode_counters()``); another fleet may add
+  groups of its own.
+- ``request(chunk_id, src, dest_key, n)``: the body of one chunk request.
+- ``statuses(ids)``: each sink's state of each chunk; ``wait(ids,
+  timeout)``: the same once each is complete or failed at every sink, or
+  at the timeout; ``errors()``: every daemon's errors.
+- ``stop()``: ends every daemon and waits for each; ``io()``: each of the
+  fleet's processes' ``/proc/<pid>/io`` counters, read until it exited;
+  ``exits()``: a line for each of them that exited with an error.
+
+The star fleet: one source gateway daemon and one destination daemon per
+sink, ``skyplane_tpu_torch`` ``GatewayDaemon``s talking over loopback TCP,
+driven through their control APIs. The programs are the ones the port's
+planner writes for a ``local`` copy: the source ``read_local`` -> ``send``
+(through ``mux_and`` to every sink when there is more than one), each sink
+``receive`` -> ``write_local`` under a root of its own.
 
 The source runs in this process on threads, on the card, with the
 ``DeviceBatchRunner`` it builds: every kernel of the served path runs there,
@@ -14,7 +49,9 @@ own (``python -m skyplane_tpu_torch.gateway.gateway_daemon``), as each
 gateway is a VM of its own in a deployment, so that no two daemons share an
 interpreter lock. A sink runs on the CPU: with paranoid verification off
 (the daemon's default) its runner would launch nothing, and a second process
-on the card would take memory and time from the first. On the CPU (the
+on the card would take memory and time from the first. So the star fleet
+refuses a configuration that asks for paranoid verification, for checksums
+off or for more than one gateway a region (``Fleet.refused``). On the CPU (the
 benchmark's own tests) the source is handed a CPU runner, as a CPU daemon
 builds none.
 """
@@ -30,7 +67,7 @@ import sys
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 WRITE_HANDLE = "write"
 ROOT = Path(__file__).resolve().parents[2]
@@ -77,23 +114,34 @@ class Gateway:
 
 
 class SinkProcess(Gateway):
-    """A sink daemon in a child process."""
+    """A sink daemon in a child process: ``receive`` -> ``write_local``, or,
+    given ``sends``, ``receive`` -> ``mux_and`` -> [``write_local``, the
+    sends], as the blast planner writes an interior sink (``docs/blast.md``),
+    with ``info`` naming each send's target. ``env`` is laid over the
+    daemon's environment: it runs on the CPU unless ``env`` sets
+    ``SKYPLANE_GATEWAY_DEVICE``."""
 
-    def __init__(self, work: Path, index: int, cfg: dict, key_file):
+    def __init__(self, work: Path, index: int, cfg: dict, key_file, sends: Sequence[dict] = (),
+                 info: Optional[dict] = None, env: Optional[Dict[str, str]] = None):
         self.index, self.port = index, _free_port()
         super().__init__(f"gw_sink{index}", self.port, cfg["encrypt_socket_tls"])
         self.root = work / f"sink{index}"
         program = work / f"sink{index}.program.json"
         write = {"op_type": "write_local", "handle": WRITE_HANDLE, "path": str(self.root), "children": []}
+        children = [{"op_type": "mux_and", "handle": "mux", "children": [write, *sends]}] if sends else [write]
         program.write_text(json.dumps(_program({"op_type": "receive", "handle": "recv", "decrypt": cfg["encrypt_e2e"],
-                                                "dedup": cfg["dedup"], "children": [write]})))
+                                                "dedup": cfg["dedup"], "children": children})))
         cmd = [sys.executable, "-m", "skyplane_tpu_torch.gateway.gateway_daemon", "--region", cfg["sink_regions"][index],
                "--chunk-dir", str(work / "chunks" / self.gateway_id), "--program-file", str(program),
                "--gateway-id", self.gateway_id, "--control-port", str(self.port), "--bind-host", "127.0.0.1"]
+        if info:
+            info_file = work / f"sink{index}.info.json"
+            info_file.write_text(json.dumps(info))
+            cmd += ["--info-file", str(info_file)]
         cmd += ["--e2ee-key-file", str(key_file)] if key_file else []
         cmd += [] if cfg["encrypt_socket_tls"] else ["--disable-tls"]
-        env = dict(os.environ, SKYPLANE_GATEWAY_DEVICE="cpu",
-                   PYTHONPATH=os.pathsep.join(p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+        env = {**os.environ, "SKYPLANE_GATEWAY_DEVICE": "cpu",
+               "PYTHONPATH": os.pathsep.join(p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p), **(env or {})}
         self.io: Dict[str, int] = {}
         self.log = work / f"sink{index}.log"
         with open(self.log, "wb") as out:
@@ -135,12 +183,42 @@ class Source(Gateway):
         return [op for op in self.daemon.operators if type(op).__name__ == "GatewaySenderOperator"]
 
 
-class Fleet:
-    """``Fleet(cfg, work_dir, key)`` spawns the sinks; ``start_source(device)``
-    starts the source once they answer; ``stop()`` ends all of them."""
+def send_op(cfg: dict, handle: str, target: Gateway, region: str) -> dict:
+    return {"op_type": "send", "handle": handle, "target_gateway_id": target.gateway_id, "region": region,
+            "num_connections": cfg["num_connections"], "compress": cfg["codec"], "encrypt": cfg["encrypt_e2e"],
+            "dedup": cfg["dedup"], "children": []}
 
-    def __init__(self, cfg: dict, work: Path, key: bytes):
-        self.cfg, self.work = cfg, work
+
+def gateway_info(gateways) -> dict:
+    return {g.gateway_id: {"public_ip": "127.0.0.1", "control_port": g.port} for g in gateways}
+
+
+def _sum_numeric(dicts) -> dict:
+    out: Dict[str, float] = {}
+    for d in dicts:
+        for k, v in d.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+class Fleet:
+    """The star fleet: ``Fleet(cfg, work_dir, key, chips)`` spawns the sinks;
+    ``start_source(device)`` starts the source once they answer; ``stop()``
+    ends all of them. A fleet file may subclass it and replace ``spawn``
+    (the sink processes), ``source_children`` (the source's operators under
+    ``read_local``) and ``refused``."""
+
+    # keys a configuration may state that this fleet cannot run, each at the
+    # one value it runs: the star's sinks are CPU processes at the daemon's
+    # defaults, and each gateway of the fleet is one daemon
+    refused = {"max_instances": 1, "verify_checksums": True, "paranoid_verify": False}
+
+    def __init__(self, cfg: dict, work: Path, key: bytes, chips: int = 1):
+        for k, runs in self.refused.items():
+            if k in cfg and cfg[k] != runs:
+                raise ValueError(f"configuration key {k}={cfg[k]!r}: this fleet runs only {k}={runs!r}")
+        self.cfg, self.work, self.chips = cfg, work, chips
         self.key = key if cfg["encrypt_e2e"] else None
         key_file = None
         if self.key:
@@ -149,14 +227,18 @@ class Fleet:
         self.source = None
         self.sinks: List[SinkProcess] = []
         try:
-            for i in range(cfg["sinks"]):
-                self.sinks.append(SinkProcess(work, i, cfg, key_file))
+            self.spawn(key_file)
         except BaseException:
             self.stop()
             raise
 
-    def sink_root(self, i: int) -> Path:
-        return self.sinks[i].root
+    def spawn(self, key_file) -> None:
+        for i in range(self.cfg["sinks"]):
+            self.sinks.append(SinkProcess(self.work, i, self.cfg, key_file))
+
+    def source_children(self) -> List[dict]:
+        sends = [send_op(self.cfg, f"send{i}", s, self.cfg["sink_regions"][i]) for i, s in enumerate(self.sinks)]
+        return sends if len(sends) == 1 else [{"op_type": "mux_and", "handle": "mux", "children": sends}]
 
     def start_source(self, device) -> None:
         from skyplane_tpu_torch.gateway.gateway_daemon import GatewayDaemon
@@ -172,14 +254,9 @@ class Fleet:
 
             runner = DeviceBatchRunner(cdc_params=params, max_batch=cfg["batch_chunks"], device=device,
                                        gateway_id="gw_src")
-        sends = [{"op_type": "send", "handle": f"send{i}", "target_gateway_id": s.gateway_id,
-                  "region": cfg["sink_regions"][i], "num_connections": cfg["num_connections"],
-                  "compress": cfg["codec"], "encrypt": cfg["encrypt_e2e"], "dedup": cfg["dedup"], "children": []}
-                 for i, s in enumerate(self.sinks)]
-        children = sends if len(sends) == 1 else [{"op_type": "mux_and", "handle": "mux", "children": sends}]
         program = _program({"op_type": "read_local", "handle": "read", "num_connections": cfg["num_connections"],
-                            "children": children})
-        info = {s.gateway_id: {"public_ip": "127.0.0.1", "control_port": s.port} for s in self.sinks}
+                            "children": self.source_children()})
+        info = gateway_info(self.sinks)
         daemon = GatewayDaemon(cfg["source_region"], str(self.work / "chunks" / "gw_src"), program, info, "gw_src",
                                control_port=0, bind_host="127.0.0.1", e2ee_key=self.key,
                                use_tls=cfg["encrypt_socket_tls"], cdc_params=params, device=device,
@@ -207,6 +284,15 @@ class Fleet:
             out.append(status)
         return out
 
+    def counters(self) -> Dict[str, dict]:
+        senders = self.source.senders()
+        return {
+            "sender": _sum_numeric(op.datapath_counters() for op in senders),
+            "wire": _sum_numeric(op.wire_counters() for op in senders),
+            "runner": dict(self.source.daemon.batch_runner.counters()),
+            "decode": _sum_numeric(g.decode_counters() for g in self.sinks),
+        }
+
     def errors(self) -> List[str]:
         errs = []
         for g in ([self.source] if self.source else []) + self.sinks:
@@ -231,6 +317,13 @@ class Fleet:
             s.stop()
         if self.source is not None and self.source.thread.is_alive():
             raise RuntimeError("the source daemon did not stop")
+
+    def io(self) -> List[Dict[str, int]]:
+        return [s.io for s in self.sinks]
+
+    def exits(self) -> List[str]:
+        return [f"sink {s.index} exited {s.proc.returncode}: {s.log_tail()}" for s in self.sinks
+                if s.proc.returncode not in (0, None)]
 
 
 def read_io(pid="self") -> Dict[str, int]:

@@ -5,11 +5,12 @@ of what the timed path produced, and the result line.
 
 A cell is an entry of ``workloads`` in ``BENCHMARK.json``: a configuration
 (``port_bench/configs/<config>.json``, the deployment: fan-out, codec,
-dedup, encryption, CDC sizes) and a traffic mix
+dedup, encryption, CDC sizes, and by its ``fleet`` and ``reference`` keys
+the files of its fleet and its plain reference) and a traffic mix
 (``port_bench/mixes/<traffic>.json``: content, object size, schedule,
 budget). Every metric the cell reports is read by its own reader,
-``port_bench/metrics/<name>.py``. Adding a cell, a mix or a metric adds
-files and entries; nothing here changes.
+``port_bench/metrics/<name>.py``. Adding a cell, a mix, a metric or a
+deployment adds files and entries; nothing here changes.
 
 The run writes its files under ``$TMPDIR`` and removes them; the port's
 build caches live in ``port_bench/.cache/`` inside the checkout.
@@ -78,12 +79,23 @@ class Spec:
         self.per_layer = [m for m in bench["per_layer"] if applies(m)]
 
 
-def _reader(name: str):
-    path = BENCH_DIR / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"port_bench_metric_{len(sys.modules)}", path)
+def _load(path: Path, prefix: str):
+    """A module of the benchmark, found by its file's path."""
+    spec = importlib.util.spec_from_file_location(f"{prefix}_{len(sys.modules)}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def _reader(name: str):
+    return _load(BENCH_DIR / "metrics" / f"{name}.py", "port_bench_metric").read
+
+
+def fleet_class(cfg: dict):
+    """The configuration's fleet: ``Fleet`` of the file that its ``fleet``
+    key names (a path from the repository root), or else the star fleet of
+    ``pbench/fleet.py``, whose docstring is the contract."""
+    return _load(ROOT / cfg["fleet"], "port_bench_fleet").Fleet if "fleet" in cfg else Fleet
 
 
 class Run:
@@ -109,25 +121,6 @@ class Run:
 
     def lags_ms(self) -> List[float]:
         return stats.lags_ms(self.due_wall, self.done_wall)
-
-
-def _sum_numeric(dicts) -> dict:
-    out: Dict[str, float] = {}
-    for d in dicts:
-        for k, v in d.items():
-            if isinstance(v, (int, float)) and not isinstance(v, bool):
-                out[k] = out.get(k, 0) + v
-    return out
-
-
-def snapshot(fleet) -> Dict[str, dict]:
-    senders = fleet.source.senders()
-    return {
-        "sender": _sum_numeric(op.datapath_counters() for op in senders),
-        "wire": _sum_numeric(op.wire_counters() for op in senders),
-        "runner": dict(fleet.source.daemon.batch_runner.counters()),
-        "decode": _sum_numeric(g.decode_counters() for g in fleet.sinks),
-    }
 
 
 def card_line() -> str:
@@ -198,13 +191,13 @@ def drive(fleet, reqs: list, offsets: List[float], t0: float) -> List[float]:
     return started
 
 
-def warm_connections(fleet, src: Path, timeout: float) -> None:
+def warm_connections(fleet, src: Path, num_connections: int, timeout: float) -> None:
     """Empty objects, one a request a few ms apart, so that every sender
     worker opens its connection in set-up, not in the window: an idle worker
     takes the next request, and an empty object runs no kernel."""
     empty = src / "empty.bin"
     empty.touch()
-    n = 4 * fleet.cfg["num_connections"]
+    n = 4 * num_connections
     ids = [uuid.uuid4().hex for _ in range(n)]
     for i, cid in enumerate(ids):
         fleet.source.post("chunk_requests", [fleet.request(cid, empty, f"empty{i:03d}.bin", 0)])
@@ -212,9 +205,9 @@ def warm_connections(fleet, src: Path, timeout: float) -> None:
     st = fleet.wait(ids, timeout)
     if not all(s.get(c) == "complete" for s in st for c in ids):
         raise RuntimeError(f"connection warm-up did not complete: {fleet.errors()[:3]}")
-    for i in range(fleet.cfg["sinks"]):
+    for sink in fleet.sinks:
         for j in range(n):
-            (fleet.sink_root(i) / f"empty{j:03d}.bin").unlink(missing_ok=True)
+            (sink.root / f"empty{j:03d}.bin").unlink(missing_ok=True)
 
 
 def _device(args, spec: Spec):
@@ -232,6 +225,9 @@ def _run(args, spec: Spec, work: Path, t_start: float) -> int:
     cfg, mix, seconds = spec.cfg, spec.mix, args.seconds
     n_window = reckon.window_objects(cfg, mix, seconds)
     planned = reckon.check_budget(cfg, mix, n_window)
+    if mix["object_bytes"] > cfg["multipart_chunk_size_mb"] << 20:
+        raise ValueError(f"an object goes as one chunk: {mix['object_bytes']} bytes is over the configuration's "
+                         f"multipart_chunk_size_mb {cfg['multipart_chunk_size_mb']}")
     n_base = mix["base_objects"]
     log(f"cell {spec.cell['name']}: {n_base} base and {n_window} window objects of {mix['object_bytes']} bytes, "
         f"{cfg['sinks']} sink(s); reckoned writes {planned} bytes")
@@ -239,19 +235,20 @@ def _run(args, spec: Spec, work: Path, t_start: float) -> int:
     if args.control == "cdc_avg_half":
         fleet_cfg = _merge(cfg, {"cdc": {"avg_bytes": cfg["cdc"]["avg_bytes"] // 2}})
     # the sinks boot while this process loads torch and makes the objects
-    fleet = Fleet(fleet_cfg, work, e2ee_key(args.seed))
+    fleet = fleet_class(cfg)(fleet_cfg, work, e2ee_key(args.seed), spec.chips)
     try:
+        if len(fleet.sinks) != cfg["sinks"]:
+            raise RuntimeError(f"the fleet has {len(fleet.sinks)} sinks; the configuration states {cfg['sinks']}")
         return _serve(args, spec, work, t_start, fleet, planned, n_base, n_window)
     finally:
         try:
             fleet.stop()
         finally:
-            for s in fleet.sinks:
-                if s.proc.returncode not in (0, None):
-                    log(f"sink {s.index} exited {s.proc.returncode}: {s.log_tail()}")
+            for note in fleet.exits():
+                log(note)
 
 
-def _serve(args, spec: Spec, work: Path, t_start: float, fleet: Fleet, planned: int, n_base: int, n_window: int) -> int:
+def _serve(args, spec: Spec, work: Path, t_start: float, fleet, planned: int, n_base: int, n_window: int) -> int:
     import torch
 
     dev, kind, platform = _device(args, spec)
@@ -292,18 +289,18 @@ def _serve(args, spec: Spec, work: Path, t_start: float, fleet: Fleet, planned: 
     if not all(s.get(c) == "complete" for s in st for c in ids[:n_base]):
         raise RuntimeError(f"set-up objects did not complete: {fleet.errors()[:3]}")
     stage("set-up objects through the fleet")
-    warm_connections(fleet, src, mix["drain_s"])
+    warm_connections(fleet, src, cfg["num_connections"], mix["drain_s"])
     stage(f"sender connections opened: {[len(op._engines) for op in fleet.source.senders()]}")
-    for i in range(cfg["sinks"]):
+    for sink in fleet.sinks:
         for j in range(n_base):
-            (fleet.sink_root(i) / f"obj{j:05d}.bin").unlink(missing_ok=True)
+            (sink.root / f"obj{j:05d}.bin").unlink(missing_ok=True)
     if mix["schedule"] == "even":
         offsets = stats.even_schedule(n_window, seconds * mix["offer_share"])
     else:
         offsets = stats.poisson_schedule(rng, n_window, seconds)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    run.before = snapshot(fleet)
+    run.before = fleet.counters()
     lo_before = loopback_tx_bytes()
     prof = None
     if args.trace and dev.type == "cuda":
@@ -318,7 +315,7 @@ def _serve(args, spec: Spec, work: Path, t_start: float, fleet: Fleet, planned: 
     delay = t0 + seconds - time.perf_counter()
     if delay > 0:
         time.sleep(delay)
-    run.after = snapshot(fleet)
+    run.after = fleet.counters()
     win_ids = ids[n_base:]
     at_close = fleet.statuses(win_ids)  # what a client polling the sinks sees at the close
     late = [(ts - t0 - off) * 1e3 for ts, off in zip(sent_at, offsets)]
@@ -336,7 +333,7 @@ def _serve(args, spec: Spec, work: Path, t_start: float, fleet: Fleet, planned: 
     # the benchmark's few queries with it
     run.wire_bytes = loopback_tx_bytes() - lo_before
     errors = fleet.errors()
-    wire_after = snapshot(fleet)["wire"]
+    wire_after = fleet.counters()["wire"]
     sent = wire_after.get("wire_bytes_sent", 0)
     log(f"loopback bytes from the window's start to the last landing {run.wire_bytes}; the source's own count of "
         f"frame bytes sent {sent - run.before['wire'].get('wire_bytes_sent', 0)}, stream resets "
@@ -351,8 +348,8 @@ def _serve(args, spec: Spec, work: Path, t_start: float, fleet: Fleet, planned: 
     landed_bad = 0
     for k, obj in enumerate(window):
         cid, ok, last = win_ids[k], True, 0.0
-        for i in range(cfg["sinks"]):
-            path = fleet.sink_root(i) / f"obj{n_base + k:05d}.bin"
+        for i, sink in enumerate(fleet.sinks):
+            path = sink.root / f"obj{n_base + k:05d}.bin"
             # a chunk lands when the last byte of its file is written: the
             # file's mtime, set by the kernel, whatever the daemon logs
             landed = path.stat().st_mtime_ns / 1e9 if path.exists() else None
@@ -368,15 +365,14 @@ def _serve(args, spec: Spec, work: Path, t_start: float, fleet: Fleet, planned: 
         run.due_wall.append(wall0 + offsets[k])
         run.done_wall.append(last if ok else None)
 
-    from reference import recipe_ref
-
+    recipe_ref = _load(ROOT / cfg["reference"], "port_bench_reference")
     with ThreadPoolExecutor(max_workers=REFERENCE_THREADS, thread_name_prefix="bench-ref") as pool:
         recipes = list(pool.map(lambda i: recipe_ref.recipe(window[i], cfg["cdc"]), sample_idx))
     expected = {ids[n_base + i]: r for i, r in zip(sample_idx, recipes)}
-    recipe_bad, notes = count_bad(tap.heads, expected, [g.gateway_id for g in fleet.sinks])
+    recipe_bad, notes = count_bad(tap.heads, expected, [op.target_gateway_id for op in fleet.source.senders()])
     for note in notes:
         log(f"recipe: {note}")
-    ios = [own_io] + [sink.io for sink in fleet.sinks]
+    ios = [own_io] + fleet.io()
     total = {k: sum(io.get(k, 0) for io in ios) for k in ("write_bytes", "cancelled_write_bytes", "wchar")}
     log(f"written bytes (/proc/<pid>/io of this process before the sinks stop, and of each sink until it exits): "
         f"write_bytes {total['write_bytes']}, cancelled_write_bytes {total['cancelled_write_bytes']}, wchar "
