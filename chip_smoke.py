@@ -1818,7 +1818,9 @@ def blast_heal_phase(dev, chunks, params, card: str) -> dict:
                             solver="greedy")
     victim = tree.children(tree.root)[0]
     out_roots = {node: str(root / "out" / node) for node in tree.sinks()}
-    codec = {"num_connections": 8, "compress": "tpu", "dedup": True}
+    # a gateway's connections, divided across its children: 8 on each relay
+    # edge of the fanout-2 tree, 16 on the source's one edge
+    codec = {"num_connections": 16, "compress": "tpu", "dedup": True}
     programs = build_local_blast_programs(tree, out_roots, **codec)
     files = []
     for i, c in enumerate(chunks):

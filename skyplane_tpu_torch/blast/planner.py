@@ -223,17 +223,20 @@ def build_local_blast_programs(
     """Per-node gateway-program dicts for a loopback blast fleet: the source
     reads local files and sends to its tree children; every sink receives,
     writes under its own ``out_roots[node]`` (write_local path re-anchoring),
-    and — when interior — peer-serves its children. Same operator shapes the
-    cloud planner emits, with local read/write endpoints."""
+    and — when interior — peer-serves its children. Same operator shapes and
+    connections the cloud planner emits (``num_connections`` is a gateway's,
+    divided across its children as ``BlastPlanner._add_sends`` divides it),
+    with local read/write endpoints."""
     programs: Dict[str, dict] = {}
 
     def send_op(target: str, peer: bool) -> dict:
+        n_siblings = len(tree.children(tree.parent[target]))
         return {
             "op_type": "send",
             "handle": f"send_{target}",
             "target_gateway_id": target,
             "region": tree.regions[target],
-            "num_connections": num_connections,
+            "num_connections": max(1, num_connections // n_siblings),
             "compress": compress,
             "encrypt": encrypt,
             "dedup": dedup,

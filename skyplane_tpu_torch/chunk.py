@@ -217,11 +217,17 @@ class ChunkRequest:
     # when the daemon's POST /api/v1/chunk_requests registered this request
     # (perf_counter_ns, and time.time_ns while tracing): the start of its
     # chunk.admit span; admit_handles holds the sender operators that have
-    # counted the wait (the POST sets it to an empty set). Not fields, so
-    # never serialized: unset on a request rebuilt from its dict
+    # counted the wait (the POST sets it to an empty set). forward_* is the
+    # same stamp where a relay's receive operator hands the landed chunk on
+    # (the start of relay.forward), forward_handles the sender operators that
+    # counted that wait. Not fields, so never serialized: unset on a request
+    # rebuilt from its dict
     admit_ns = 0
     admit_wall_ns = 0
     admit_handles = None
+    forward_ns = 0
+    forward_wall_ns = 0
+    forward_handles = None
 
     def as_dict(self) -> dict:
         return asdict(self)

@@ -215,6 +215,10 @@ class GatewayWaitReceiverOperator(GatewayOperator):
         chunk_id = chunk_req.chunk.chunk_id
         done_marker = self.chunk_store.chunk_path(chunk_id).with_suffix(".done")
         if done_marker.exists():
+            # handed on landed: a relay's senders below time relay.forward from here
+            chunk_req.forward_ns = time.perf_counter_ns()
+            chunk_req.forward_wall_ns = time.time_ns() if get_tracer().enabled else 0
+            chunk_req.forward_handles = set()
             return True
         time.sleep(self.CHECK_INTERVAL)
         return False  # re-queue until the receiver finishes
@@ -1010,29 +1014,44 @@ class GatewaySenderOperator(GatewayOperator):
         after a NACK, a dead socket or a shutdown comes back as the same
         object, and multicast branches share it, so the request keeps the
         handles that counted it. A traced chunk records the wait as its
-        ``chunk.admit`` span, the parent of this worker's ``wire.frame``."""
+        ``chunk.admit`` span, the parent of this worker's ``wire.frame``.
+
+        On a relay the request also carries its receive operator's hand-off
+        stamp: the wait since then counts the same way (``forward_wait_ns``,
+        ``forward_chunks``), as the ``relay.forward`` span under
+        ``chunk.admit``."""
         tracer = get_tracer()
         if tracer.enabled:
             self._local.admit_spans = {}
         now = time.perf_counter_ns()
+        stats = self.processor.stats
         for req in batch:
-            counted = req.admit_handles
-            if counted is None or self.handle in counted:
-                continue  # not registered by this daemon's POST (pump worker), or a requeue
-            counted.add(self.handle)  # one handle per operator; set.add is atomic
-            wait = now - req.admit_ns
-            self.processor.stats.add("admit_wait_ns", wait)
             cid = req.chunk.chunk_id
-            if req.admit_wall_ns and tracer.enabled and (req.chunk.traced or tracer.sampled(cid)):
-                self._local.admit_spans[cid] = tracer.record_span(
-                    "chunk.admit",
-                    wait,
-                    req.admit_wall_ns,
-                    trace_id=cid,
-                    cat="sender",
-                    force=True,
-                    args=self._frame_span_args(req),
-                )
+            traced = tracer.enabled and (req.chunk.traced or tracer.sampled(cid))
+            admit_span = None
+            counted = req.admit_handles
+            # None: not registered by this daemon's POST (pump worker); the
+            # handle already in it: a requeue
+            if counted is not None and self.handle not in counted:
+                counted.add(self.handle)  # one handle per operator; set.add is atomic
+                wait = now - req.admit_ns
+                stats.add("admit_wait_ns", wait)
+                if req.admit_wall_ns and traced:
+                    admit_span = self._local.admit_spans[cid] = tracer.record_span(
+                        "chunk.admit", wait, req.admit_wall_ns, trace_id=cid, cat="sender", force=True,
+                        args=self._frame_span_args(req),
+                    )
+            forwarded = req.forward_handles
+            if forwarded is not None and self.handle not in forwarded:
+                forwarded.add(self.handle)
+                wait = now - req.forward_ns
+                stats.add("forward_wait_ns", wait)
+                stats.add("forward_chunks", 1)
+                if req.forward_wall_ns and traced:
+                    tracer.record_span(
+                        "relay.forward", wait, req.forward_wall_ns, trace_id=cid, cat="relay", force=True,
+                        args=self._frame_span_args(req), parent=admit_span,
+                    )
 
     def _header_from_meta(self, chunk, meta: dict, length: int, n_left: int) -> WireProtocolHeader:
         """Rebuild the per-send wire header from cached send-invariant meta

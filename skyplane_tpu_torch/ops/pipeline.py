@@ -140,10 +140,13 @@ class DataPathStats:
     this processor: ``admit_wait_ns`` (``chunk.admit``: the POST that
     registered a chunk to the sender worker that dequeued it), ``read_ns``
     (``chunk.read``), ``encode_ns`` (``datapath.encode``: ``process``),
-    ``seal_ns`` (``wire.seal``)."""
+    ``seal_ns`` (``wire.seal``). On a relay, ``forward_wait_ns``
+    (``relay.forward``: the receive operator handing a landed chunk on to a
+    sender worker dequeuing it) over ``forward_chunks``, once per operator."""
 
     STAGE_KEYS = ("admit_wait_ns", "read_ns", "encode_ns", "seal_ns")
-    _KEYS = ("chunks", "raw_bytes", "wire_bytes", "segments", "ref_segments", "device_wait_ns") + STAGE_KEYS
+    RELAY_KEYS = ("forward_wait_ns", "forward_chunks")
+    _KEYS = ("chunks", "raw_bytes", "wire_bytes", "segments", "ref_segments", "device_wait_ns") + STAGE_KEYS + RELAY_KEYS
     EXTERNAL_ZERO = {
         "pool_hits": 0,
         "pool_misses": 0,

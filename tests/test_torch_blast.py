@@ -19,6 +19,7 @@ from __future__ import annotations
 import copy
 import hashlib
 import importlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -514,6 +515,10 @@ def test_blast_plan_equals_the_jax_package(tmp_path, case):
 ])
 @pytest.mark.parametrize("fanout", [1, 2, 3])
 def test_local_blast_programs_equal_the_jax_package(kw, fanout):
+    """Equal but for the connections of each send: the port divides a
+    gateway's ``num_connections`` across its children as the planner does,
+    where the JAX package's ``build_local_blast_programs`` gives every edge
+    all of them."""
     got = {}
     for pkg in ("port", "ref"):
         tree_mod = _mod(pkg, "blast.tree")
@@ -527,7 +532,18 @@ def test_local_blast_programs_equal_the_jax_package(kw, fanout):
             "infos": planner_mod.gateway_info_for(tree, ports),
             "order": planner_mod.start_order(tree),
         }
+    n = kw.get("num_connections", 2)
+    for node, prog in got["ref"]["programs"].items():
+        for op in _walk_ops(prog["plan"][0]["value"]):
+            if op["op_type"] == "send":
+                op["num_connections"] = max(1, n // len(tree.children(node)))
     assert got["port"] == got["ref"]
+
+
+def _walk_ops(ops):
+    for op in ops:
+        yield op
+        yield from _walk_ops(op.get("children", []))
 
 
 @pytest.mark.parametrize("mix", ["port_source_ref_relay", "ref_source_port_relay"])
@@ -652,3 +668,90 @@ def test_copied_module_keeps_the_reference_names(name):
     assert rn - pn == set(), f"missing: {sorted(rn - pn)}"
     if hasattr(ref, "__all__"):
         assert port.__all__ == ref.__all__
+
+
+# ---- the plain reference of port_bench, and the planner's connections ----
+
+
+def _tree_ref():
+    spec = importlib.util.spec_from_file_location("blast_tree_ref", REPO / "port_bench/reference/blast_tree_ref.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _grid(seed: int, k: int):
+    """A seeded cost grid over a source region and ``k`` sink regions, drawn
+    from a few egress prices so that equal-cost trees are common; or, at
+    seed -1, every edge free (a loopback)."""
+    regions = ["r_src"] + [f"r{i}" for i in range(k)]
+    rng = np.random.default_rng(max(seed, 0))
+    prices = [0.0, 0.01, 0.02, 0.05, 0.08, 0.09, 0.12]
+    grid = {(a, b): (0.0 if seed < 0 else float(rng.choice(prices))) for a in regions for b in regions}
+    fanout, degree = (3, 1) if seed < 0 else (int(rng.integers(1, 4)), int(rng.integers(1, 3)))
+    return {f"s{i}": f"r{i}" for i in range(k)}, (lambda a, b: grid[(a, b)]), fanout, degree
+
+
+@pytest.mark.parametrize("seed", [-1, *range(8)], ids=["zero", *map(str, range(8))])
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 6])
+def test_tree_solvers_equal_the_plain_reference(k, seed):
+    """Both solvers place a tree within the degree bounds. At zero costs (the
+    loopback, where the MILP weighs depth alone) each has the reference's
+    cost and total depth. On priced grids the MILP has the reference's
+    least cost; its depth tie-break sits below the solver's gap, so its
+    depth is not held (an inherited gap, ROADMAP queue 1). The greedy rung,
+    a heuristic, has no less than the reference's cost there."""
+    ref = _tree_ref()
+    sinks, cost_fn, fanout, degree = _grid(seed, k)
+    want = ref.best_tree("src", sinks, "r_src", cost_fn, fanout, degree)
+    for solver in ("milp", "greedy"):
+        tree = solve_blast_tree("src", sinks, "r_src", cost_fn=cost_fn, fanout=fanout, source_degree=degree,
+                                solver=solver)
+        assert tree.solver == solver and sorted(tree.parent) == sorted(sinks)
+        assert ref.within_bounds("src", tree.parent, fanout, degree)
+        cost, depth = ref.score("src", tree.parent, tree.regions, cost_fn)
+        assert depth == sum(tree.depth(s) for s in tree.sinks())
+        if seed < 0:
+            assert (cost, depth) == pytest.approx((want.cost, want.depth), abs=1e-12), (solver, tree.edges(), want)
+        elif solver == "milp":
+            assert cost == pytest.approx(want.cost, abs=1e-12), (tree.edges(), want)
+        else:
+            assert cost >= want.cost - 1e-12
+
+
+def test_tree_reference_imports_nothing_but_the_standard_library():
+    import ast
+
+    tree = ast.parse((REPO / "port_bench/reference/blast_tree_ref.py").read_text())
+    mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    mods |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    assert {m.split(".")[0] for m in mods} <= {"__future__", "collections", "itertools", "typing"}
+
+
+@pytest.mark.parametrize("n_dst,fanout,degree,conns", [(4, 3, 1, 32), (8, 2, 1, 32), (6, 3, 2, 7), (3, 3, 1, 2)])
+def test_local_blast_programs_take_the_planners_connections(n_dst, fanout, degree, conns):
+    """``build_local_blast_programs`` gives each send the connections the planner's
+    ``_add_sends`` gives it: the gateway's count divided across its
+    children; the source's read keeps the whole count."""
+    dsts = [f"local:site{i}" for i in range(n_dst)]
+    planner = BlastPlanner(_cfg(compress="tpu", dedup=True, num_connections=conns), fanout=fanout,
+                           source_degree=degree, quota_limits_file="")
+    plan = planner.plan([_job("local:src", dsts)])
+    tree = planner.last_tree
+    planned = {}
+    for gid, gw in plan.gateways.items():
+        for op in _walk_ops(gw.gateway_program.to_dict()["plan"][0]["value"]):
+            if op["op_type"] == "send":
+                planned[(gid, op["target_gateway_id"])] = op["num_connections"]
+    assert sorted(planned) == sorted(tree.edges())
+    programs = build_local_blast_programs(tree, {s: f"/out/{s}" for s in tree.sinks()}, num_connections=conns,
+                                          compress="tpu", dedup=True)
+    local = {}
+    for node, prog in programs.items():
+        for op in _walk_ops(prog["plan"][0]["value"]):
+            if op["op_type"] == "send":
+                local[(node, op["target_gateway_id"])] = op["num_connections"]
+            if op["op_type"] == "read_local":
+                assert op["num_connections"] == conns
+    assert local == planned
+    assert any(len(tree.children(s)) > 1 for s in tree.sinks())  # a divided count is checked

@@ -154,7 +154,7 @@ def test_batch_runner_stress_more_threads_than_cores():
 
 # the port's stage timings (docs/observability_torch.md), which the JAX package does not count
 PORT_RUNNER_STAGE_KEYS = {"window_wait_ns", "stage_ns", "stage_bytes", "stage_rows"}
-PORT_SENDER_STAGE_KEYS = {"admit_wait_ns", "read_ns", "encode_ns", "seal_ns"}
+PORT_SENDER_STAGE_KEYS = {"admit_wait_ns", "read_ns", "encode_ns", "seal_ns", "forward_wait_ns", "forward_chunks"}
 
 
 def test_counter_key_schemas_match_reference():

@@ -238,7 +238,7 @@ def test_persistent_index_warm_across_daemon_restart(tmp_path):
 # not count: its /profile/compression keys and metric families gain them
 PORT_STAGE_KEYS = {
     "datapath": {"admit_wait_ns", "read_ns", "encode_ns", "seal_ns", "window_wait_ns", "stage_ns", "stage_bytes",
-                 "stage_rows"},
+                 "stage_rows", "forward_wait_ns", "forward_chunks"},
     "decode": {"decode_queue_ns", "decode_open_ns", "restore_ns", "land_ns"},
 }
 

@@ -407,3 +407,42 @@ def test_processor_without_a_runner_counts_no_stage(tmp_path):
     proc.process(np.random.default_rng(1).integers(0, 256, 70_000, dtype=np.uint8).tobytes(), SenderDedupIndex())
     stats = proc.stats.as_dict()
     assert stats["chunks"] == 1 and stats["stage_rows"] == 0 and stats["window_wait_ns"] == 0
+
+
+@pytest.mark.parametrize("requeue", [False, True], ids=["plain", "injected_requeue"])
+def test_relay_forward_counts_once_per_peer_serve_sender_and_equals_its_spans(tmp_path, tracer_at, requeue):
+    """src -> relay -> two leaves on CPU daemons (the blast programs): the
+    relay's senders count each chunk's wait since its receive operator handed
+    it on (``forward_wait_ns``) once per operator (``forward_chunks``), an
+    injected peer-serve requeue adds nothing, and the counter is the sum of
+    the relay's ``relay.forward`` spans."""
+    from skyplane_tpu_torch.blast import solve_blast_tree
+    from skyplane_tpu_torch.faults import FaultPlan, configure_injector
+    from torch_gateway_util import start_blast_fleet
+
+    tracer = tracer_at(1.0)
+    tree = solve_blast_tree("src", {"a": "local:local", "b": "local:local", "c": "local:local"}, "local:local",
+                            cost_fn=lambda x, y: 0.0, fanout=2, source_degree=1)
+    (relay_id,) = tree.interior_nodes()
+    rng = np.random.default_rng(11)
+    files = write_sources(tmp_path, [rng.integers(0, 256, 200_000, dtype=np.uint8).tobytes() for _ in range(3)])
+    inj = configure_injector(FaultPlan.from_dict({"seed": 1, "points": {"relay.peer_serve": {"p": 1.0, "max_fires": 2}}})
+                             if requeue else None)
+    source, sinks, _ = start_blast_fleet(tmp_path, tree)
+    try:
+        ids = dispatch(source, files)
+        for gw in sinks.values():
+            wait_complete(gw, ids)
+        senders = [op for op in sinks[relay_id].daemon.operators if type(op).__name__ == "GatewaySenderOperator"]
+        counters = [op.datapath_counters() for op in senders]
+        fired = inj.counters().get("relay.peer_serve", 0)
+    finally:
+        configure_injector(None)
+        stop_all(source, *sinks.values())
+    assert len(senders) == 2 and all(op.peer_serve for op in senders) and fired == (2 if requeue else 0)
+    assert [c["forward_chunks"] for c in counters] == [len(ids)] * 2
+    spans = [r for r in tracer.span_records() if r["name"] == "relay.forward"]
+    assert len(spans) == 2 * len(ids) and {r["chunk_id"] for r in spans} == set(ids)
+    assert sum(c["forward_wait_ns"] for c in counters) == sum(r["end_ns"] - r["start_ns"] for r in spans) > 0
+    # a source's chunks come from its POST, never from a receive operator
+    assert source.sender().datapath_counters()["forward_chunks"] == 0
